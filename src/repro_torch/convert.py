@@ -1,0 +1,105 @@
+"""Parameters and AdamW state between the JAX package's layout and the
+port's.
+
+The JAX package keeps the agent as a nested dict ``{"policy": {...},
+"value": {...}}`` of arrays (``embed.w`` is (d_in, d_out)); the port keeps
+an ``nn.ModuleDict`` whose parameter names are the same key paths joined by
+"." (``policy.embed.w``) with the same shapes, so converting is a rename.
+Inputs are numpy arrays (``np.asarray`` of a JAX leaf works); outputs on
+the JAX side are numpy arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.core import networks as nets
+from repro_torch.device import resolve_device
+
+
+def flatten_tree(tree, prefix=""):
+    """Nested dict -> {"a.b.c": leaf}."""
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(flatten_tree(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def unflatten_tree(flat):
+    """{"a.b.c": leaf} -> nested dict."""
+    out = {}
+    for name, v in flat.items():
+        *path, leaf = name.split(".")
+        node = out
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+def _modules_for(tree):
+    pol, val = tree["policy"], tree["value"]
+    obs_dim, hidden = np.shape(pol["embed"]["w"])
+    act_dim = np.shape(pol["mean"]["w"])[1]
+    if "gru" in pol:
+        return nn.ModuleDict({
+            "policy": nets.RNNPolicyNet(
+                obs_dim=obs_dim, act_dim=act_dim, hidden=hidden,
+                rnn_hidden=np.shape(pol["gru"]["wz"]["w"])[1]),
+            "value": nets.RNNValueNet(
+                obs_dim=obs_dim, hidden=np.shape(val["embed"]["w"])[1],
+                rnn_hidden=np.shape(val["gru"]["wz"]["w"])[1]),
+        })
+    return nn.ModuleDict({
+        "policy": nets.PolicyNet(obs_dim=obs_dim, act_dim=act_dim,
+                                 hidden=hidden),
+        "value": nets.ValueNet(obs_dim=obs_dim,
+                               hidden=np.shape(val["embed"]["w"])[1]),
+    })
+
+
+def params_from_jax(tree, *, device=None) -> nn.ModuleDict:
+    """JAX agent params ``{"policy", "value"}`` -> the port's ModuleDict of
+    PolicyNet/ValueNet (or the GRU pair, when the policy has a ``gru``),
+    on ``device`` (None: the CUDA device)."""
+    modules = _modules_for(tree)
+    state = {n: torch.as_tensor(np.array(v, np.float32))
+             for n, v in flatten_tree(tree).items()}
+    modules.load_state_dict(state, strict=True)
+    return modules.to(resolve_device(device))
+
+
+def params_to_jax(params: nn.Module):
+    """The port's ModuleDict -> the JAX package's nested dict of numpy."""
+    return unflatten_tree({n: p.detach().cpu().numpy()
+                           for n, p in params.named_parameters()})
+
+
+def adamw_state_from_jax(opt, *, device=None):
+    """JAX ``adamw_init``/``adamw_update`` state -> the port's
+    ``{"m": {name: tensor}, "v": {...}, "step": int32 tensor}``."""
+    device = resolve_device(device)
+
+    def flat(tree):
+        return {n: torch.as_tensor(np.array(v, np.float32), device=device)
+                for n, v in flatten_tree(tree).items()}
+
+    return {"m": flat(opt["m"]), "v": flat(opt["v"]),
+            "step": torch.as_tensor(np.array(opt["step"], np.int32),
+                                    device=device)}
+
+
+def adamw_state_to_jax(opt):
+    """The port's AdamW state -> the JAX package's nested dicts of numpy."""
+    def nested(flat):
+        return unflatten_tree({n: t.detach().cpu().numpy()
+                               for n, t in flat.items()})
+
+    return {"m": nested(opt["m"]), "v": nested(opt["v"]),
+            "step": np.asarray(opt["step"].cpu().numpy(), np.int32)}

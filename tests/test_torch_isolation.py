@@ -1,0 +1,128 @@
+"""The port stands alone: ``import repro_torch`` (and every submodule) works
+with JAX blocked and loads nothing of the JAX package, no source under
+``src/repro_torch`` imports either, and the modules the port copies from
+the JAX package (JAX-free there) run the same code as their originals."""
+
+import ast
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+PORT = SRC / "repro_torch"
+IMPORT_LINE = re.compile(r"^\s*(from|import)\s+(jax|repro)(\.|\s|$)",
+                         re.MULTILINE)
+
+# port copy -> original; their code may differ only in repro -> repro_torch
+# on import lines
+COPIES = {"transfer/engine.py": "transfer/engine.py",
+          "transfer/recovery.py": "transfer/recovery.py",
+          "core/exploration.py": "core/exploration.py"}
+
+
+def test_import_with_jax_blocked_loads_no_reference_module():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k == 'repro' or k.startswith('repro.')\n"
+        "             or k == 'jax' and sys.modules[k] is not None\n"
+        "             or k.startswith('jax.'))\n"
+        "assert not bad, bad\n"
+        "assert len(names) >= 20, names\n"
+        "print('ok', len(names))\n")
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_no_source_imports_jax_or_the_reference_package():
+    offenders = []
+    for path in sorted(PORT.rglob("*.py")):
+        for m in IMPORT_LINE.finditer(path.read_text()):
+            line = path.read_text()[m.start():].splitlines()[0]
+            offenders.append(f"{path.relative_to(SRC)}: {line.strip()}")
+    assert not offenders, offenders
+
+
+def _code(path):
+    """The module's code as an AST dump, import names normalised from
+    repro_torch to repro, docstrings dropped (comments never reach the
+    AST): what the copy runs, not how it is worded."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module:
+            node.module = re.sub(r"^repro_torch\b", "repro", node.module)
+        elif isinstance(node, ast.Import):
+            for alias in node.names:
+                alias.name = re.sub(r"^repro_torch\b", "repro", alias.name)
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            body[0].value.value = ""
+    return ast.dump(tree)
+
+
+def test_copied_modules_equal_their_originals():
+    for port, orig in COPIES.items():
+        assert _code(PORT / port) == _code(SRC / "repro" / orig), (
+            f"repro_torch/{port} drifted from repro/{orig}")
+
+
+def test_cursor_checkpoints_are_readable_across_packages(tmp_path):
+    """The port's checkpointer keeps the reference's on-disk format: a
+    cursor saved by either package loads in the other."""
+    from repro.transfer.recovery import (FlowCursor as JCursor,
+                                         save_cursor as jsave,
+                                         load_cursor as jload)
+    from repro_torch.transfer.recovery import (FlowCursor, save_cursor,
+                                               load_cursor)
+    c = FlowCursor(1000)
+    c.add(0, 100)
+    c.add(300, 50)
+    save_cursor(str(tmp_path / "port"), c, 1)
+    back = jload(str(tmp_path / "port"))
+    assert back.total == 1000 and back.intervals() == c.intervals()
+    j = JCursor(500)
+    j.add(10, 20)
+    jsave(str(tmp_path / "ref"), j, 3)
+    mine = load_cursor(str(tmp_path / "ref"))
+    assert mine.total == 500 and mine.intervals() == j.intervals()
+    assert load_cursor(str(tmp_path / "empty")) is None
+
+
+def test_checkpoint_round_trips_and_keeps_the_newest(tmp_path):
+    from repro_torch.checkpoint import (save_checkpoint, load_checkpoint,
+                                        latest_step)
+    state = {"a": np.arange(10, dtype=np.float32),
+             "b": {"c": np.int64(7), "d": np.ones((3, 2), np.int32)}}
+    for step in (1, 2, 3, 4):
+        save_checkpoint(str(tmp_path), state, step, keep=2)
+    assert latest_step(str(tmp_path)) == 4
+    assert sorted(os.listdir(tmp_path)) == ["step_3", "step_4"]
+    back, step = load_checkpoint(str(tmp_path), state)
+    assert step == 4
+    np.testing.assert_array_equal(back["a"], state["a"])
+    np.testing.assert_array_equal(back["b"]["d"], state["b"]["d"])
+    assert int(back["b"]["c"]) == 7
+
+
+def test_checkpoint_refuses_the_unported_engine_save(tmp_path):
+    from repro_torch.checkpoint import save_checkpoint, latest_step
+    with pytest.raises(NotImplementedError):
+        save_checkpoint(str(tmp_path), {"a": np.zeros(2)}, 1,
+                        use_engine=True)
+    assert latest_step(str(tmp_path)) is None
