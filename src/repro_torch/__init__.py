@@ -5,8 +5,14 @@ The JAX package ``repro`` is the reference; this package imports nothing of
 it and nothing of JAX. Layers ported so far:
 
   repro_torch.core       — schedule, utility, the batched dense simulator,
-                           networks, single-flow PPO, exploration, and the
-                           production AutoMDTController
+                           the multi-flow fleet, networks, single-flow and
+                           fleet PPO, exploration, the Marlin and Globus
+                           baselines, and the production AutoMDTController
+                           and FleetController
+  repro_torch.scenarios  — scenario families, ScenarioSpec, the fleet
+                           samplers and the fleet evaluation harness
+  repro_torch.runtime    — the heartbeat registry the fleet controller's
+                           health check reads
   repro_torch.transfer   — the real 3-stage transfer engine (a copy)
   repro_torch.checkpoint — atomic, sha256-verified checkpoints of NumPy state
   repro_torch.nn         — the layers the networks use (linear, layernorm)

@@ -1,4 +1,5 @@
-"""AutoMDT's core, ported to PyTorch: the single-flow main path.
+"""AutoMDT's core, ported to PyTorch: the single-flow main path and the
+multi-flow fleet.
 
   schedule.py    ScheduleTable: piecewise-constant conditions, one table or
                  a batch (leading env axis); 1-bin constant_table
@@ -7,11 +8,20 @@
   simulator.py   the dense schedule-native simulator with the env batch
                  written out; its substep loop is the sim_step CUDA kernel
   networks.py    residual actor/critic of §IV-D + the GRU actor-critic
-  workload.py    the per-round training bundle (tables axis)
-  ppo.py         Algorithm 2: single-flow PPO on the batched simulator
+  fleet.py       F flows contending for one scheduled bottleneck
+                 (thread-proportional shares, arrivals, per-flow objectives,
+                 Jain-fairness reward); its solve is the contention CUDA
+                 kernel, its buffer integration the sim_step kernel
+  workload.py    the per-round training bundle (tables, flows, objectives)
+  ppo.py         Algorithm 2: PPO on the batched simulator, single flow or
+                 one shared policy over a fleet
   exploration.py random-threads logging phase -> B_i, TPT_i, b, n_i*, R_max
+  marlin.py      baseline: 3 independent single-variable gradient-descent
+                 optimizers (a copy)
+  globus.py      baseline: static configuration (a copy)
   controller.py  production phase (§IV-F): AutoMDTController over one
-                 live engine
+                 live engine, FleetController over N engines on a
+                 SharedLink
 """
 
 from repro_torch.core.utility import (utility, stage_utility, r_max,
@@ -24,11 +34,26 @@ from repro_torch.core.schedule import (ScheduleTable, make_table,
 from repro_torch.core.simulator import (SimParams, SimEnv, make_env_params,
                                         ObservationSpec, HistorySpec,
                                         DEFAULT_OBS, CONTEXT_OBS,
+                                        FLEET_OBS, OBJECTIVE_OBS,
                                         history_init, history_push,
                                         history_flatten)
 from repro_torch.core.networks import (PolicyNet, ValueNet, RNNPolicyNet,
                                        RNNValueNet, rnn_carry)
+from repro_torch.core.fleet import (FleetState, FlowSchedule,
+                                    make_flow_schedule, always_on,
+                                    stack_flow_schedules, active_at,
+                                    fleet_reset, fleet_step, fleet_observe,
+                                    fleet_interval, fleet_achievable,
+                                    jain_index, FlowObjective,
+                                    make_flow_objective, default_objectives,
+                                    stack_flow_objectives,
+                                    objective_features, PRIORITY_TIERS,
+                                    flow_bucket, max_concurrent_flows,
+                                    pad_flow_schedule, pad_flow_objectives)
 from repro_torch.core.workload import Workload
 from repro_torch.core.ppo import PPOConfig, train_ppo, effective_obs_spec
 from repro_torch.core.exploration import explore, ExplorationResult
-from repro_torch.core.controller import AutoMDTController, FleetPolicy
+from repro_torch.core.marlin import MarlinOptimizer
+from repro_torch.core.globus import GlobusController
+from repro_torch.core.controller import (AutoMDTController, FleetPolicy,
+                                         FleetController)

@@ -1,5 +1,6 @@
-"""Production phase (§IV-F) for one flow (port of ``repro.core.controller``:
-``AutoMDTController``, ``FleetPolicy`` and ``_FleetFrames``).
+"""Production phase (§IV-F) (port of ``repro.core.controller``:
+``AutoMDTController``, ``FleetPolicy``, ``_FleetFrames`` and
+``FleetController``).
 
 Load the best offline-trained policy and re-enter the interaction loop with
 no episode limit until the dataset has been transferred. Every step: build
@@ -20,20 +21,35 @@ on the policy's device as ONE dispatch per control interval, counted in
 stacking (spec.history > 1) keeps the zero-padded K-frame window the PPO
 rollout carries, and ``policy="gru"`` threads the recurrent carry (zeros
 at reset) on the device, so sim-trained params drop into the live loop
-unchanged. Fleet and topology controllers, and online adaptation, belong to
-later slices of the port.
+unchanged.
+
+``FleetController`` runs ONE shared policy across N live engines on a
+``SharedLink``: the batched observations become the (F, frame_dim) matrix
+in a handful of NumPy ops, with the cross-flow features and the objective
+block (``objective_features_np``) computed as ``fleet_observe`` computes
+them, a heartbeat health check masking stalled flows, and one act
+dispatch per control interval. The topology controller and online
+adaptation belong to later slices of the port.
 """
 
 from __future__ import annotations
 
 import copy
+import re
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.core import networks as nets
+from repro_torch.core.fleet import (FlowObjective, objective_features_np,
+                                    default_objectives)
 from repro_torch.core.simulator import ObservationSpec, DEFAULT_OBS
 from repro_torch.device import resolve_device
+
+# the health check's worker namespace: ONLY ``flow<digits>`` belongs to the
+# fleet controller; a shared registry may carry foreign workers
+_FLOW_WORKER = re.compile(r"flow(\d+)")
 
 _OBS_KEYS = ("threads", "throughputs", "sender_free", "receiver_free",
              "sender_capacity", "receiver_capacity")
@@ -154,7 +170,6 @@ class AutoMDTController:
         """Drive a live engine until ``total_bytes`` moved (or
         engine.done()), on the ``time.monotonic()`` clock. Returns the trace
         [(t, threads, throughputs)]."""
-        import time
         trace = []
         t0 = time.monotonic()
         steps = 0
@@ -247,3 +262,226 @@ class FleetPolicy:
     def act(self, frames):
         """frames: (F, frame_dim) -> (F, 3) int thread allocations."""
         return self._action(self._window(np.asarray(frames, np.float32)))
+
+
+def _observe_fleet(engines):
+    """One batched telemetry pass: every engine snapshotted against ONE
+    timestamp (``observe_at``) so the per-flow rate windows stay aligned;
+    engines without the batched hook use their own clock."""
+    now = time.monotonic()
+    return [e.observe_at(now) if hasattr(e, "observe_at") else e.observe()
+            for e in engines]
+
+
+class FleetController:
+    """Production phase for a FLEET: one shared policy drives N live engines
+    contending on a SharedLink, mirroring the sim contention model. The
+    batched observations become the (F, frame_dim) matrix (``_FleetFrames``)
+    and, when the spec carries them, the cross-flow features — active
+    fraction, aggregate network utilization over ``bw_ref``, each flow's
+    share of the aggregate — and the objective block are appended exactly
+    as ``fleet_observe`` computes them, so sim-trained fleet params
+    transfer unchanged. ``objectives`` are in ENGINE units (deadline in
+    seconds on the run clock, demand in the engines' byte units)."""
+
+    def __init__(self, policy_params, *, n_flows, n_max=100, bw_ref=None,
+                 deterministic=True, seed=0,
+                 obs_spec: ObservationSpec = DEFAULT_OBS, interval=1.0,
+                 policy="mlp", objectives: FlowObjective = None,
+                 online=None, device=None):
+        if online is not None:
+            raise NotImplementedError("online adaptation lands with the "
+                                      "faults-and-online slice of the port")
+        if obs_spec.topology:
+            raise NotImplementedError("the topology features land with the "
+                                      "topology slice of the port")
+        self.n_flows = n_flows
+        self.n_max = n_max
+        self.bw_ref = bw_ref
+        self.obs_spec = obs_spec
+        self.interval = interval
+        # held as host arrays: the objective block is NumPy on the hot path
+        self.objectives = (None if objectives is None else FlowObjective(
+            *(x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+              else np.asarray(x) for x in objectives)))
+        self._frames = _FleetFrames(n_max=n_max, bw_ref=bw_ref,
+                                    obs_spec=obs_spec, interval=interval)
+        self.fleet_policy = FleetPolicy(policy_params, n_max=n_max,
+                                        deterministic=deterministic,
+                                        seed=seed, obs_spec=obs_spec,
+                                        policy=policy, device=device)
+
+    def reset(self):
+        self._frames.reset()
+        self.fleet_policy.reset()
+
+    def _fleet_bw(self):
+        # the aggregate-utilization normalization: the explicit reference
+        # when given (0 is explicit too, clamped), else the running max
+        if self.bw_ref is not None:
+            return max(float(self.bw_ref), 1e-9)
+        return max(self._frames._bw_seen, 1e-9)
+
+    def frames(self, obs_list, active=None, t=0.0, delivered=None):
+        """(F, frame_dim) matrix from the engines' observe() dicts."""
+        return self.frames_arrays(_stack_observations(obs_list), active,
+                                  t=t, delivered=delivered)
+
+    def frames_arrays(self, obs, active=None, t=0.0, delivered=None):
+        """(F, frame_dim) matrix from a BATCHED observation: ``obs`` maps
+        the observe() keys to (F, ...) arrays. ``active``: optional (F,)
+        0/1 mask of the flows transferring (default: all); inactive flows
+        are masked out of the aggregate and share features. With the
+        objective dims, ``t`` (run-clock seconds) and ``delivered`` ((F,)
+        bytes written per flow, default zeros) feed the objective block."""
+        tps = np.asarray(obs["throughputs"], float)
+        F = tps.shape[0]
+        if F == 0:
+            return np.zeros((0, self.obs_spec.frame_dim), np.float32)
+        if self.bw_ref is None:
+            # ONE normalization reference across the whole fleet, as the
+            # sim divides every flow by the same schedule peak
+            self._frames._bw_seen = max(self._frames._bw_seen,
+                                        float(tps.max()), 1e-9)
+        base = self._frames.frames(obs)
+        if self.obs_spec.fleet:
+            act = (np.ones(F) if active is None
+                   else np.asarray(active, float))
+            net = tps[:, 1] * act
+            agg = net.sum()
+            rows = np.stack([
+                np.full(F, act.sum() / max(self.n_flows, 1)),
+                np.full(F, agg / self._fleet_bw()),
+                net / max(agg, 1e-9),
+            ], axis=-1)
+            base = np.concatenate([base, rows], axis=-1)
+        if self.obs_spec.objectives:
+            obj = (self.objectives if self.objectives is not None
+                   else default_objectives(F, device="cpu"))
+            dlv = (np.zeros(F) if delivered is None
+                   else np.asarray(delivered, float))
+            rows = objective_features_np(obj, float(t), dlv,
+                                         bw_ref=self._fleet_bw(),
+                                         duration=self.interval)
+            base = np.concatenate([base, rows], axis=-1)
+        return base.astype(np.float32)
+
+    def step(self, obs_list, active=None, t=0.0, delivered=None):
+        """List of observe() dicts -> list of (n_r, n_n, n_w) tuples."""
+        acts = self.step_arrays(_stack_observations(obs_list), active,
+                                t=t, delivered=delivered)
+        return [tuple(int(x) for x in row) for row in acts]
+
+    def step_arrays(self, obs, active=None, t=0.0, delivered=None):
+        """Batched observation dict -> (F, 3) int action matrix in ONE act
+        dispatch."""
+        frames = self.frames_arrays(obs, active, t=t, delivered=delivered)
+        if frames.shape[0] == 0:
+            return np.zeros((0, 3), int)
+        return self.fleet_policy.act(frames)
+
+    @staticmethod
+    def _settle_sleep(seconds, engines, settled):
+        """Sleep the control interval in short slices, returning as soon as
+        EVERY engine has settled."""
+        deadline = time.monotonic() + seconds
+        while not all(settled(i, e) for i, e in enumerate(engines)):
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return
+            time.sleep(min(remaining, 0.05))
+
+    def run(self, engines, *, interval=1.0, max_steps=None, total_bytes=None,
+            on_step=None, registry=None, dead_after=None):
+        """Drive N live engines until every one reports done() or is closed
+        (or ``total_bytes`` moved fleet-wide / ``max_steps`` elapsed).
+        Engines that finish or are torn down keep being observed but are
+        masked inactive and no longer steered. Exit conditions are checked
+        BEFORE each interval's sleep, and the sleep is abort-aware. The run
+        clock is ``time.monotonic()``.
+
+        ``engines``: a list of engines, or a ``SharedLink`` — then the
+        per-flow byte counters ride its batched ``bytes_written_all()``.
+        ONE byte snapshot per interval feeds ``delivered``, the health
+        check and the termination sum.
+
+        Health checks: with ``registry`` (a ``HeartbeatRegistry``), the
+        controller beats ``flow<i>`` for every engine that made byte
+        progress since the last step (and once up front). A flow whose last
+        beat is older than ``dead_after`` seconds (default ``4 *
+        interval``) is DEAD: masked like a closed engine, no longer
+        steered, not required for termination; it is re-admitted once it
+        makes progress again.
+
+        Returns the trace [(t, [n3 per flow], [goodput per flow])]."""
+        link = (engines if hasattr(engines, "bytes_written_all")
+                and hasattr(engines, "engines") else None)
+        if link is not None:
+            engines = list(link.engines)
+
+        def snapshot_bytes():
+            if link is not None:
+                return link.bytes_written_all()
+            return [e.bytes_written() for e in engines]
+
+        def observe_now():
+            if link is not None:
+                return link.observe_all()
+            return _observe_fleet(engines)
+
+        dead = set()    # flow indices declared dead by the health check
+        if registry is not None and dead_after is None:
+            dead_after = 4.0 * interval
+        last_bytes = [None] * len(engines)
+
+        def settled(i, e):
+            return i in dead or e.done() or not getattr(e, "alive", True)
+
+        def health_check(step, bytes_now):
+            for i, b in enumerate(bytes_now):
+                # progress (or first sight, or clean completion) = alive
+                if (last_bytes[i] is None or b > last_bytes[i]
+                        or engines[i].done()):
+                    registry.beat(f"flow{i}", step, interval)
+                last_bytes[i] = b
+            now_m = time.monotonic()
+            dead.clear()   # recomputed each check: progress re-admits
+            for w, (beat_t, _, _) in registry.snapshot().items():
+                m = _FLOW_WORKER.fullmatch(w)
+                if m is None:
+                    continue   # a foreign worker: not ours
+                idx = int(m.group(1))
+                if idx < len(engines) and now_m - beat_t > dead_after:
+                    dead.add(idx)
+
+        trace = []
+        t0 = time.monotonic()
+        steps = 0
+        while True:
+            delivered = snapshot_bytes()
+            if registry is not None:
+                health_check(steps, delivered)
+            if total_bytes is not None and sum(delivered) >= total_bytes:
+                break
+            if all(settled(i, e) for i, e in enumerate(engines)):
+                break
+            if max_steps is not None and steps >= max_steps:
+                break
+            obs = observe_now()
+            active = np.asarray([0.0 if settled(i, e) else 1.0
+                                 for i, e in enumerate(engines)])
+            for i, (e, n) in enumerate(
+                    zip(engines,
+                        self.step(obs, active, t=time.monotonic() - t0,
+                                  delivered=delivered))):
+                if not settled(i, e):
+                    e.set_concurrency(n)
+            self._settle_sleep(interval, engines, settled)
+            obs2 = observe_now()
+            trace.append((time.monotonic() - t0,
+                          [tuple(o["threads"]) for o in obs2],
+                          [o["throughputs"][2] for o in obs2]))
+            if on_step:
+                on_step(trace[-1])
+            steps += 1
+        return trace

@@ -1,4 +1,4 @@
-"""Algorithm 2: PPO training for thread allocation, single flow (port of
+"""Algorithm 2: PPO training for thread allocation (port of
 ``repro.core.ppo``).
 
 Faithful loop structure: N episodes, each = reset to random threads + M env
@@ -7,19 +7,27 @@ steps + ONE batched update over the episode memory (clipped surrogate +
 episode batch, convergence when the best episode reward reaches
 0.9*R_max*M and then ``patience`` episodes pass without improvement.
 
-``train_ppo`` covers the single-flow regimes:
+``train_ppo`` covers these regimes:
 
   static          train_ppo(params, cfg) — no workload; the env runs the
                   params' frozen conditions as a 1-bin schedule
   single schedule train_ppo(params, cfg, workload=Workload(tables=...))
   domain random.  train_ppo(params, cfg, workload=..., resample=fn) — the
-                  batched tables are redrawn before every episode batch
+                  batched workload is redrawn before every episode batch
+  fleet           cfg.n_flows > 1: ONE shared policy steps every flow's
+                  observation row through the contention model of
+                  ``repro_torch.core.fleet``; the step reward is shared
+                  across the fleet (aggregate utility + fairness_coef *
+                  Jain, with per-flow objectives when the workload has
+                  them), and each (env, step, flow) is one PPO sample
+                  against the shared return
 
-The rollout steps all ``cfg.n_envs`` envs as one batch: one env step of the
-whole batch is one launch of the simulator kernel. ``cfg.policy`` selects
-the temporal policy ("mlp" | "stacked" frame-stacking | "gru" recurrent
-carry). Fleet training (``n_flows > 1``), topologies and meshes belong to
-later slices of the port and raise NotImplementedError.
+The rollout steps all ``cfg.n_envs`` envs (and all their flows) as one
+batch: one env step of the whole batch is one launch of the simulator
+kernel, plus one of the contention kernel in fleet mode. ``cfg.policy``
+selects the temporal policy ("mlp" | "stacked" frame-stacking | "gru"
+recurrent carry). Topologies and meshes belong to later slices of the port
+and raise NotImplementedError.
 
 Random draws (initial threads, episode start times, action noise) come from
 one ``torch.Generator`` on the device; the rollout also takes them as
@@ -30,12 +38,15 @@ from __future__ import annotations
 
 import copy
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace as dc_replace
 
 import torch
 from torch import nn
 
 from repro_torch.core import networks as nets
+from repro_torch.core.fleet import (fleet_reset, fleet_step, fleet_observe,
+                                    flow_bucket, pad_flow_schedule,
+                                    pad_flow_objectives, _always_on_batch)
 from repro_torch.core.simulator import (env_reset, env_step, observe, ACT_DIM,
                                         ObservationSpec, DEFAULT_OBS,
                                         history_init, history_push,
@@ -73,8 +84,14 @@ class PPOConfig:
     policy: str = "mlp"          # "mlp" | "stacked" | "gru"
     history: int = 4             # frames stacked when policy="stacked"
     rnn_hidden: int = 64         # GRU carry width when policy="gru"
-    n_flows: int = 1             # > 1: fleet training (a later slice)
-    pad_flows: bool = False      # fleet scale-out (a later slice)
+    n_flows: int = 1             # > 1: fleet training, ONE shared policy
+    fairness_coef: float = 0.0   # weight of the Jain fairness reward term
+    deadline_coef: float = 1.0   # weight of the deadline-miss penalty
+    max_active: int | None = None  # fleet scale-out: bound on the flows
+    # any one step interval touches (the compact solve); size it with
+    # core.fleet.max_concurrent_flows + flow_bucket; None = the dense solve
+    pad_flows: bool = False      # pad the fleet to flow_bucket(n_flows)
+    # with never-active flows (the reward is unchanged)
     param_selection: str = "best_episode"  # | "batch_mean"
     device: str | None = None    # None: the CUDA device
 
@@ -188,6 +205,64 @@ def _rollout(policy_net, env_params, tables, generator=None, *, n_envs, M,
     return obs, act, rew, logp
 
 
+@torch.no_grad()
+def _rollout_fleet(policy_net, env_params, tables, flows, objectives,
+                   generator=None, *, n_envs, n_flows, M, substeps, spec,
+                   randomize_t0, policy="mlp", fairness_coef=0.0,
+                   deadline_coef=1.0, max_active=None, threads0=None,
+                   t0_draw=None, noise=None):
+    """One fleet episode in each of ``n_envs`` envs, stepped as one batch:
+    F flows contend for the scheduled capacity, ONE shared policy maps each
+    flow's observation row to that flow's action, and every step's reward
+    is the shared fleet objective. ``flows``/``objectives``: batched
+    (E, F) FlowSchedule/FlowObjective (None = always on / the default
+    objective). History windows and the GRU carry get a flow axis, so
+    fleet-trained params drop into the per-flow live controller.
+
+    Draws from ``generator`` unless given explicitly: ``threads0``
+    (E, F, 3), ``t0_draw`` (E,) and ``noise`` (M, E, F, 3). Returns (obs
+    (E, M, F, D), action (E, M, F, 3), reward (E, M), logp (E, M, F))."""
+    device = env_params.tpt.device
+    if randomize_t0:
+        horizon = tables.tpt.shape[1] * tables.bin_seconds            # (E,)
+        span = torch.clamp_min(horizon - (M + 1) * env_params.duration, 0.0)
+        if t0_draw is None:
+            t0_draw = torch.rand(n_envs, generator=generator, device=device)
+        t0 = t0_draw * span
+    else:
+        t0 = 0.0
+    fspec = spec._replace(history=1)
+    state = fleet_reset(env_params, n_envs, n_flows, t0, flows=flows,
+                        table=tables, substeps=substeps,
+                        objectives=objectives, max_active=max_active,
+                        generator=generator, threads=threads0)
+    hist = history_init(spec, fleet_observe(
+        env_params, state, flows=flows, table=tables, spec=fspec,
+        objectives=objectives, max_active=max_active))    # (E, F, K, D)
+    recurrent = policy == "gru"
+    h = nets.rnn_carry(policy_net, (n_envs, n_flows)) if recurrent else None
+    traj = []
+    for m in range(M):
+        obs = history_flatten(hist)
+        if recurrent:
+            h, mean, std = policy_net(h, obs)
+        else:
+            mean, std = policy_net(obs)
+        eps = (noise[m] if noise is not None else
+               torch.randn(mean.shape, generator=generator, device=device))
+        action = mean + std * eps
+        logp = nets.gaussian_logp(mean, std, action)
+        state, obs_next, reward = fleet_step(
+            env_params, state, action, flows=flows, table=tables,
+            substeps=substeps, spec=fspec, fairness_coef=fairness_coef,
+            objectives=objectives, deadline_coef=deadline_coef,
+            max_active=max_active)
+        hist = history_push(hist, obs_next)
+        traj.append((obs, action, reward, logp))
+    obs, act, rew, logp = (torch.stack(x, dim=1) for x in zip(*traj))
+    return obs, act, rew, logp
+
+
 def _returns(rew, gamma):
     """Discounted returns along the last (step) axis."""
     g = torch.zeros_like(rew[..., 0])
@@ -272,29 +347,61 @@ def _values(params, obs, recurrent):
     return torch.stack(out, dim=1)
 
 
+def _per_flow_sequences(x):
+    """(E, M, F, ...) -> (E*F, M, ...): one sequence per (env, flow)."""
+    x = x.transpose(1, 2)
+    return x.reshape((-1,) + x.shape[2:])
+
+
 def _make_episode_fn(env_params, cfg: PPOConfig, *, randomize_t0):
     """One call = n_envs episodes (one batched rollout) + ppo_epochs
-    updates of the single flow. The train state's modules are updated in
-    place: AdamW computes the new values functionally and they are copied
-    into the parameters, so the modules' identity survives the update."""
+    updates. With ``cfg.n_flows > 1`` the rollout is the fleet's, and every
+    (env, step, flow) sample trains against the SHARED return of its step:
+    Monte-Carlo returns are broadcast over flows, GAE runs on each flow's
+    own baseline, and the recurrent replay treats each (env, flow) pair as
+    one carry sequence. The train state's modules are updated in place:
+    AdamW computes the new values functionally and they are copied into
+    the parameters, so the modules' identity survives the update."""
     spec = effective_obs_spec(cfg)
     recurrent = cfg.policy == "gru"
+    fleet = cfg.n_flows > 1
     loss_fn = _loss_recurrent if recurrent else _loss
 
-    def episode(train_state, tables, generator=None, *, threads0=None,
-                t0_draw=None, noise=None):
+    def episode(train_state, tables, generator=None, *, flows=None,
+                objectives=None, threads0=None, t0_draw=None, noise=None):
         params, opt = train_state["params"], train_state["opt"]
-        obs, act, rew, logp = _rollout(
-            params["policy"], env_params, tables, generator,
-            n_envs=cfg.n_envs, M=cfg.max_steps, substeps=cfg.substeps,
-            spec=spec, randomize_t0=randomize_t0, policy=cfg.policy,
-            threads0=threads0, t0_draw=t0_draw, noise=noise)
+        if fleet:
+            obs, act, rew, logp = _rollout_fleet(
+                params["policy"], env_params, tables, flows, objectives,
+                generator, n_envs=cfg.n_envs, n_flows=cfg.n_flows,
+                M=cfg.max_steps, substeps=cfg.substeps, spec=spec,
+                randomize_t0=randomize_t0, policy=cfg.policy,
+                fairness_coef=cfg.fairness_coef,
+                deadline_coef=cfg.deadline_coef, max_active=cfg.max_active,
+                threads0=threads0, t0_draw=t0_draw, noise=noise)
+        else:
+            obs, act, rew, logp = _rollout(
+                params["policy"], env_params, tables, generator,
+                n_envs=cfg.n_envs, M=cfg.max_steps, substeps=cfg.substeps,
+                spec=spec, randomize_t0=randomize_t0, policy=cfg.policy,
+                threads0=threads0, t0_draw=t0_draw, noise=noise)
         if cfg.gae_lambda == 1.0:  # the paper's Monte-Carlo path
             ret = _returns(rew, cfg.gamma)
+            if fleet:
+                ret = ret[:, :, None].expand_as(logp)           # (E, M, F)
+        elif fleet:  # shared reward, per-flow baselines
+            v = _values(params, _per_flow_sequences(obs), recurrent)
+            E, M, F = logp.shape
+            r = rew[:, None, :].expand(E, F, M).reshape(E * F, M)
+            ret = _gae_returns(r, v, cfg.gamma, cfg.gae_lambda)
+            ret = ret.reshape(E, F, M).transpose(1, 2)          # (E, M, F)
         else:
             ret = _gae_returns(rew, _values(params, obs, recurrent),
                                cfg.gamma, cfg.gae_lambda)
-        if recurrent:  # the loss replays carries over episode sequences
+        if recurrent and fleet:
+            batch = tuple(_per_flow_sequences(x)
+                          for x in (obs, act, ret, logp))
+        elif recurrent:  # the loss replays carries over episode sequences
             batch = (obs, act, ret, logp)
         else:
             batch = (obs.reshape(-1, spec.dim), act.reshape(-1, ACT_DIM),
@@ -318,18 +425,22 @@ def _make_episode_fn(env_params, cfg: PPOConfig, *, randomize_t0):
 
 def train_ppo(env_params, cfg: PPOConfig = None, *, workload=None,
               resample=None, r_max=None, mesh=None):
-    """Algorithm 2, schedule-native, single flow. Returns TrainResult with
-    the BEST (not last) params.
+    """Algorithm 2, schedule-native. Returns TrainResult with the BEST (not
+    last) params.
 
-    ``workload``: a ``Workload`` whose ``tables`` is a batched ScheduleTable
-    (leading axis cfg.n_envs), or None for the params' static conditions.
+    ``workload``: a ``Workload`` bundling the batched ScheduleTable
+    (leading axis cfg.n_envs; None = the params' static conditions), and in
+    fleet mode the batched FlowSchedule (None = every flow always on) and
+    FlowObjective (None = the default objective), all on the config's
+    device. ``repro_torch.scenarios.sample_fleet_batch`` returns one.
     ``resample``: optional ``fn(round_index) -> Workload`` called before
-    every episode batch to redraw the tables; an explicitly passed
-    ``workload`` is honored for round 0, resampling starts at round 1."""
+    every episode batch to redraw the distribution; an explicitly passed
+    ``workload`` is honored for round 0, resampling starts at round 1.
+    ``cfg.pad_flows`` pads the fleet (and every round's flows and
+    objectives) to ``flow_bucket(cfg.n_flows)`` never-active flows."""
     cfg = cfg or PPOConfig()
-    if cfg.n_flows > 1 or cfg.pad_flows:
-        raise NotImplementedError("fleet training (n_flows > 1, pad_flows) "
-                                  "lands with the fleet slice of the port")
+    if cfg.pad_flows and cfg.n_flows > 1:
+        cfg = dc_replace(cfg, n_flows=flow_bucket(cfg.n_flows))
     if mesh is not None:
         raise NotImplementedError("train_ppo(mesh=) lands with the "
                                   "multi-GPU fleet slice of the port")
@@ -361,8 +472,16 @@ def train_ppo(env_params, cfg: PPOConfig = None, *, workload=None,
             if not isinstance(wl, Workload):
                 raise TypeError("resample(round) must return a Workload")
         rnd += 1
-        train_state, ep_rewards, loss = episode_fn(train_state, wl.tables,
-                                                   gen)
+        flows, objectives = wl.flows, wl.objectives
+        if cfg.n_flows > 1:
+            if flows is None:
+                flows = _always_on_batch(cfg.n_envs, cfg.n_flows,
+                                         env_params.tpt.device)
+            if cfg.pad_flows:
+                flows = pad_flow_schedule(flows, cfg.n_flows)
+                objectives = pad_flow_objectives(objectives, cfg.n_flows)
+        train_state, ep_rewards, loss = episode_fn(
+            train_state, wl.tables, gen, flows=flows, objectives=objectives)
         ep_rewards = ep_rewards.cpu().numpy()
         if by_batch_mean:
             batch_mean = float(ep_rewards.mean())

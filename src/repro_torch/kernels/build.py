@@ -3,9 +3,10 @@ shared libraries with a plain C interface, and load them with ctypes.
 
 A library is built at first use into ``build/kernels/`` at the root of the
 checkout, under a name keyed by a hash of its source and the compiler flags,
-so an edited source is rebuilt and an unchanged one is reused. Nothing here
-runs at import: the CPU tests import every module, and a host without nvcc
-never reaches this code.
+so an edited source is rebuilt and an unchanged one is reused.
+``build_all`` starts one nvcc per source, all at once.
+Nothing here runs at import: the CPU tests import every module, and a host
+without nvcc never reaches this code.
 """
 
 from __future__ import annotations
@@ -16,12 +17,14 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("sim_step", "contention")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}   # name -> nvcc's output (ptxas -v report)
@@ -66,6 +69,14 @@ def build(name: str) -> float | None:
                            f"(exit {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, out)   # atomic: a reader never sees half a file
     return time.monotonic() - t0
+
+
+def build_all() -> dict[str, float | None]:
+    """``build`` every source, one nvcc each, all started together.
+    Returns {name: its compile's seconds or None}; raises as ``build``
+    does once every compile has ended."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        return dict(zip(SOURCES, pool.map(build, SOURCES)))
 
 
 def load(name: str) -> ctypes.CDLL:

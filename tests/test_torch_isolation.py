@@ -19,10 +19,17 @@ IMPORT_LINE = re.compile(r"^\s*(from|import)\s+(jax|repro)(\.|\s|$)",
                          re.MULTILINE)
 
 # port copy -> original; their code may differ only in repro -> repro_torch
-# on import lines
+# on import lines, and in importing a host twin (HOST_TWINS) where the
+# original imports the name it stands for
 COPIES = {"transfer/engine.py": "transfer/engine.py",
           "transfer/recovery.py": "transfer/recovery.py",
-          "core/exploration.py": "core/exploration.py"}
+          "core/exploration.py": "core/exploration.py",
+          "scenarios/families.py": "scenarios/families.py",
+          "core/globus.py": "core/globus.py",
+          "core/marlin.py": "core/marlin.py"}
+# the port's CPU-only twin -> the reference name it stands for: the port's
+# entry point runs on the card by default, the NumPy copy reads it on the host
+HOST_TWINS = {"_always_on_host": "always_on"}
 
 
 def test_import_with_jax_blocked_loads_no_reference_module():
@@ -59,12 +66,14 @@ def test_no_source_imports_jax_or_the_reference_package():
 
 def _code(path):
     """The module's code as an AST dump, import names normalised from
-    repro_torch to repro, docstrings dropped (comments never reach the
+    repro_torch to repro and host twins to their names, docstrings dropped (comments never reach the
     AST): what the copy runs, not how it is worded."""
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.ImportFrom) and node.module:
             node.module = re.sub(r"^repro_torch\b", "repro", node.module)
+            for alias in node.names:
+                alias.name = HOST_TWINS.get(alias.name, alias.name)
         elif isinstance(node, ast.Import):
             for alias in node.names:
                 alias.name = re.sub(r"^repro_torch\b", "repro", alias.name)

@@ -191,11 +191,15 @@ def test_returns_match_reference():
 def test_unported_regimes_refuse():
     tenv = tsim.make_env_params(tpt=TPT, bw=BW, cap=CAP, device="cpu")
     with pytest.raises(NotImplementedError):
-        tppo.train_ppo(tenv, tppo.PPOConfig(n_flows=4, device="cpu"))
+        tppo.train_ppo(tenv, tppo.PPOConfig(n_flows=4, device="cpu"),
+                       mesh=object())
     with pytest.raises(NotImplementedError):
-        tppo.train_ppo(tenv, tppo.PPOConfig(device="cpu"), mesh=object())
+        tppo.Workload(topology=object())
     with pytest.raises(NotImplementedError):
-        tppo.Workload(flows=object())
+        tppo.Workload(faults=[None])
+    # the fleet axes are ported: a flows/objectives workload is accepted
+    wl = tppo.Workload(flows=object(), objectives=object())
+    assert wl.topology is None and wl.faults is None
 
 
 def test_train_ppo_static_runs_and_counts_episodes():
