@@ -36,6 +36,17 @@ port's entry points:
   9. fleet agreement and scale: one fleet episode batch on the card
                 against the CPU, fleet_step at 4096 flows dense and
                 compact, and a profile of one fleet episode batch
+ 10. attention  the flash-attention kernel against its plain version at
+                smollm-135m's prefill shape (bf16 and float32), a ragged S,
+                a sliding window and D=128; kernel, device, plain, library
+                (scaled_dot_product_attention, timed only) and bound times
+ 11. serving    repro_torch.launch.serve at the full smollm-135m config
+                with attn_backend="pallas" (8 prompts of 1024 tokens, 32
+                greedy tokens each): prefill s, decode tokens/s, the
+                kernel's launches (one per layer per prefill, none in
+                decode); finite logits, agreement with the 'full' backend,
+                decode against a longer prefill, and a profile of one
+                prefill and one decode step
 
 It prints its findings on earlier lines, one JSON line with every kernel's
 numbers, the nvidia-smi line, and ends with the line
@@ -59,6 +70,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
 SIM_OPS_PER_SUBSTEP = 16    # f32 ops of one substep of one env (K1)
 # The dependent chain of one env: the sender buffer s carries 8 dependent
 # f32 ops per substep (cap_s - s, min, max, + read, min, min, max, - net),
@@ -99,6 +111,34 @@ FLEET_LIVE_MB = 12           # each live flow's transfer
 # arrivals, hold_frac 0.01, seed 7; fleet_step timed over SCALE_ITERS steps
 SCALE_FLOWS = 4096
 SCALE_ITERS = 20
+# K4 (flash attention) shapes, name: (B, S, Hq, Hkv, D, window, dtype):
+# smollm-135m's prefill in phase 11 (8 prompts of 1024 tokens, 9 q heads
+# over 3 kv heads, head dim 64) in bf16 and in float32, a ragged S, a
+# sliding window of 256 at S=2048, and D=128 with 32 q over 8 kv heads.
+FA_SHAPES = {
+    "smollm_bf16": (8, 1024, 9, 3, 64, None, "bfloat16"),
+    "smollm_f32": (8, 1024, 9, 3, 64, None, "float32"),
+    "ragged": (8, 1000, 9, 3, 64, None, "bfloat16"),
+    "window": (8, 2048, 9, 3, 64, 256, "bfloat16"),
+    "d128": (2, 2048, 32, 8, 128, None, "bfloat16"),
+}
+# kernel vs plain version: the same float32 arithmetic summed in another
+# order (float32), and at most one bf16 ulp of outputs up to 4 (bf16)
+FA_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# phase 11: smollm-135m at full width, the reference serve's greedy loop
+SERVE_ARCH = "smollm-135m"
+SERVE_BATCH = 8
+SERVE_PROMPT = 1024
+SERVE_GEN = 32
+SERVE_SEED = 0
+# bf16 logits of two paths through 30 layers: the reference's own bf16
+# prefill/decode consistency test (tests/test_models_smoke.py) allows
+# atol 0.15 and rtol 0.15; the 'pallas' and 'full' backends differ by
+# design (K4 keeps its probabilities in float32, 'full' rounds them to
+# bf16), and over 30 layers by more than the 5e-2 the 4-layer SMOKE tests
+# allow (0.071 at this phase's shapes on an H100)
+SERVE_ATOL = 0.15
+SERVE_RTOL = 0.15
 
 
 def fail(msg):
@@ -178,6 +218,25 @@ def bound_ms(n_bytes, n_ops, chain_ops):
     t_ops = max(terms["ops_rate_ms"], terms["chain_ms"])
     return (max(terms["bytes_ms"], t_ops),
             "bytes" if terms["bytes_ms"] >= t_ops else "operations", terms)
+
+
+def fa_bound(B, S, Hq, Hkv, D, window, dtype):
+    """K4's bound at one shape: q, k, v read once and o written once over
+    the memory rate, and the live (causal, windowed) score and PV products,
+    4 * D operations per live (query, key) pair of each head, over the
+    peak rate of the inputs' type (bf16 tensor cores; float32 outside
+    them, the rate at which float32 keeps its precision)."""
+    esize = 2 if dtype == "bfloat16" else 4
+    n_bytes = esize * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+    w = min(window or S, S)
+    live = w * (w + 1) // 2 + (S - w) * w
+    n_ops = 4 * B * Hq * D * live
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
+    terms = {"bytes_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "ops_ms": n_ops / rate * 1e3, "gflop": n_ops / 1e9,
+             "mbytes": n_bytes / 1e6}
+    by = "bytes" if terms["bytes_ms"] >= terms["ops_ms"] else "operations"
+    return max(terms["bytes_ms"], terms["ops_ms"]), by, terms
 
 
 def sim_inputs(torch, E, S, seed):
@@ -281,17 +340,21 @@ def phase_contention(torch):
 def reset_launches():
     from repro_torch.kernels.sim_step import ops as sim_ops
     from repro_torch.kernels.contention import ops as k3_ops
+    from repro_torch.kernels.flash_attention import ops as k4_ops
     sim_ops.sim_interval_batch.launches = 0
     sim_ops.sim_step_batch.launches = 0
     k3_ops.contention_rates.launches = 0
+    k4_ops.flash_attention.launches = 0
 
 
 def read_launches():
     from repro_torch.kernels.sim_step import ops as sim_ops
     from repro_torch.kernels.contention import ops as k3_ops
+    from repro_torch.kernels.flash_attention import ops as k4_ops
     return {"sim_interval": sim_ops.sim_interval_batch.launches,
             "sim_step": sim_ops.sim_step_batch.launches,
-            "contention": k3_ops.contention_rates.launches}
+            "contention": k3_ops.contention_rates.launches,
+            "flash_attention": k4_ops.flash_attention.launches}
 
 
 def fleet_params(dev):
@@ -544,6 +607,168 @@ def phase_fleet_scale(torch):
                 compact_ms=scale["compact"][0], profile=prof)
 
 
+def phase_attention(torch):
+    """10. K4 against its plain version at every shape of FA_SHAPES, with
+    kernel (CUDA events), device (profiler), plain, library and bound
+    times. The library call, scaled_dot_product_attention, is timed as a
+    yardstick only: the port never calls it."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for i, (name, (B, S, Hq, Hkv, D, window, dtype)) in enumerate(
+            FA_SHAPES.items()):
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn((B, S, h, D), generator=gen,
+                               device="cuda").to(dt)
+                   for h in (Hq, Hkv, Hkv))
+        kern = lambda: ops.flash_attention(q, k, v, window=window)
+        plain = lambda: attention_reference(q, k, v, window=window)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if window is None:
+            lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            pos = torch.arange(S, device="cuda")
+            band = ((pos[:, None] >= pos[None, :])
+                    & (pos[:, None] - pos[None, :] < window))
+            lib = lambda: sdpa(qt, kt, vt, attn_mask=band, enable_gqa=True)
+        got = kern()
+        torch.cuda.synchronize()
+        err = float((got.float() - plain().float()).abs().max())
+        if not err <= FA_TOL[dtype]:
+            fail(f"flash_attention {name}: max abs err {err} > "
+                 f"{FA_TOL[dtype]}")
+        b_ms, b_by, terms = fa_bound(B, S, Hq, Hkv, D, window, dtype)
+        row = dict(B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, window=window,
+                   dtype=dtype, max_abs_err=err,
+                   ms=time_ms(torch, kern, samples=10, inner=10),
+                   device_ms=device_ms(torch, kern, "flash_attention_kernel",
+                                       n=10),
+                   plain_ms=time_ms(torch, plain, samples=5, inner=3,
+                                    warmup=1),
+                   library_ms=time_ms(torch, lib, samples=10, inner=10),
+                   bound_ms=b_ms, bound_by=b_by, bound_terms=terms)
+        rows[name] = row
+        print(f"[attention] {name} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+              f"window={window} {dtype}: max_abs_err={err:.3g} "
+              f"ms={row['ms']} device_ms={row['device_ms']} "
+              f"plain_ms={row['plain_ms']} library_ms={row['library_ms']} "
+              f"bound_ms={b_ms:.4g} ({b_by}; {json.dumps(terms)}); "
+              f"kernel/library {row['ms'] / row['library_ms']:.2f}x, "
+              f"kernel/bound {row['ms'] / b_ms:.1f}x")
+    return rows
+
+
+def phase_serve(torch):
+    """11. LM serving: serve() at the full smollm-135m config with the
+    'pallas' backend, counting K4's launches, then checks on the same
+    weights (the init is seeded) and prompts: finite logits, the greedy
+    token serve() chose, K4 launched once per layer per prefill and never
+    in decode, agreement with the 'full' backend, decode against a longer
+    prefill, and a profile of one prefill and one decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import get_model
+    cfg = get_config(SERVE_ARCH).replace(attn_backend="pallas")
+    B, P, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    reset_launches()
+    toks, info = serve(cfg, batch=B, prompt_len=P, gen=G, seed=SERVE_SEED)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"[serve] {SERVE_ARCH} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, vocab "
+          f"{cfg.vocab}, bf16, attn_backend=pallas): {B} prompts x {P} "
+          f"tokens, {G} greedy tokens each; prefill {info['prefill_s']:.4f} "
+          f"s, decode {info['decode_s']:.4f} s = {info['tok_per_s']:.1f} "
+          f"tokens/s; launches {json.dumps(launches)}")
+    if tuple(toks.shape) != (B, G) or not (
+            0 <= int(toks.min()) and int(toks.max()) < cfg.vocab):
+        fail(f"serve returned tokens {tuple(toks.shape)} out of range")
+    if launches != {**{k: 0 for k in launches},
+                    "flash_attention": cfg.n_layers}:
+        fail(f"serving launched {json.dumps(launches)}, expected "
+             f"flash_attention = {cfg.n_layers} (one prefill) and no other")
+
+    model = get_model(cfg)
+    full = get_model(cfg.replace(attn_backend="full"))
+    params = model.init(SERVE_SEED)
+    rng = np.random.default_rng(SERVE_SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, P),
+                                           dtype=np.int32)).cuda()
+    batch = {"tokens": tokens}
+    with torch.inference_mode():
+        reset_launches()
+        logits, cache = model.prefill(params, batch,
+                                      model.init_cache(B, P + G))
+        torch.cuda.synchronize()
+        n_prefill = read_launches()["flash_attention"]
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        reset_launches()
+        step_logits, cache = model.decode_step(params, cache, tok)
+        torch.cuda.synchronize()
+        n_decode = read_launches()["flash_attention"]
+        logits_full, _ = full.prefill(params, batch,
+                                      full.init_cache(B, P + G))
+        short, c2 = model.prefill(params, {"tokens": tokens[:, :-1]},
+                                  model.init_cache(B, P + G))
+        consist, _ = model.decode_step(params, c2, tokens[:, -1:])
+        torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(x).all()) for x in
+                 (logits, step_logits, logits_full, short, consist))
+    same_first = bool(torch.equal(tok[:, 0], toks[:, 0]))
+    d_full = (logits - logits_full).abs()
+    d_step = (consist - logits).abs()
+    # argmax agreement, or a near-tie: the step's choice scores within the
+    # tolerance of the longer prefill's top logit
+    top = logits.max(dim=-1).values
+    chosen = logits.gather(1, consist.argmax(dim=-1, keepdim=True))[:, 0]
+    step_ok = bool(torch.all(d_step <= SERVE_ATOL + SERVE_RTOL
+                             * logits.abs()))
+    argmax_ok = bool(torch.all(top - chosen
+                               <= SERVE_ATOL + SERVE_RTOL * top.abs()))
+    print(f"[serve check] logits finite {finite}; prefill launches "
+          f"{n_prefill}, decode step launches {n_decode}; serve's first "
+          f"tokens reproduced {same_first}; pallas vs full backend: max abs "
+          f"diff {float(d_full.max()):.4g}, mean {float(d_full.mean()):.4g},"
+          f" argmax agree {float((logits.argmax(-1) == logits_full.argmax(-1)).float().mean()):.3f}"
+          f" (|logit| max {float(logits.abs().max()):.3g}); prefill({P}) vs "
+          f"prefill({P - 1}) + decode: max abs diff "
+          f"{float(d_step.max()):.4g}, argmax agree "
+          f"{float((logits.argmax(-1) == consist.argmax(-1)).float().mean()):.3f}")
+    if not finite:
+        fail("non-finite logits in serving")
+    if n_prefill != cfg.n_layers or n_decode != 0:
+        fail(f"flash_attention launched {n_prefill} times in a prefill and "
+             f"{n_decode} in a decode step, expected {cfg.n_layers} and 0")
+    if not same_first:
+        fail("the same weights and prompts did not reproduce serve's first "
+             "tokens")
+    if not float(d_full.max()) <= SERVE_ATOL:
+        fail(f"the pallas and full backends differ by "
+             f"{float(d_full.max())} > {SERVE_ATOL}")
+    if not (step_ok and argmax_ok):
+        fail("a decode step disagrees with the longer prefill")
+
+    def one_prefill():
+        with torch.inference_mode():
+            model.prefill(params, batch, model.init_cache(B, P + G))
+
+    def one_decode():
+        with torch.inference_mode():
+            model.decode_step(params, cache, tok)
+
+    prof = {"prefill": profile_round(torch, one_prefill,
+                                     ("flash_attention_kernel",)),
+            "decode_step": profile_round(torch, one_decode,
+                                         ("flash_attention_kernel",))}
+    for name, pr in prof.items():
+        print(f"[serve profile] {name}: " + json.dumps(pr))
+    return dict(info=info, launches=launches, profile=prof,
+                max_diff_full=float(d_full.max()),
+                max_diff_step=float(d_step.max()))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -750,6 +975,10 @@ def main():
     fl = phase_fleet(torch)
     # --- 9. fleet agreement with the CPU, scale-out, profile ------------------
     phase_fleet_scale(torch)
+    # --- 10. flash-attention kernel parity and times ---------------------------
+    k4 = phase_attention(torch)
+    # --- 11. LM serving: smollm-135m prefill and greedy decode ----------------
+    sv = phase_serve(torch)
 
     kernels = []
     for name, line, E in (("sim_interval", 54, 32), ("sim_step", 24, 16384)):
@@ -790,6 +1019,22 @@ def main():
                                   "max_abs_err", "ms", "device_ms",
                                   "plain_ms", "bound_ms", "bound_by",
                                   "bound_terms")}
+    row = k4["smollm_bf16"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:31",
+        "launches": sv["launches"]["flash_attention"],
+        "max_abs_err": max(r["max_abs_err"] for r in k4.values()),
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        **{k: row[k] for k in ("B", "S", "Hq", "Hkv", "D", "window",
+                               "dtype", "device_ms", "bound_terms")},
+    })
+    for name, r in k4.items():
+        if name != "smollm_bf16":
+            kernels[-1][f"at_{name}"] = r
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

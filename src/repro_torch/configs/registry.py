@@ -1,0 +1,38 @@
+"""The port's architecture registry: the archs the port can run, each with
+its exact published config and its structurally identical SMOKE config.
+The code is the JAX package's registry with ``ARCHS`` narrowed to the
+ported archs; every other arch raises KeyError naming ROADMAP.md, where the
+families still to port are listed.
+
+Sources ([verified-tier] per assignment):
+  smollm-135m            hf:HuggingFaceTB/SmolLM-135M
+"""
+
+from __future__ import annotations
+
+import importlib
+
+ARCHS = [
+    "smollm-135m",
+]
+
+_MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_") for a in ARCHS}
+
+
+def _module(arch):
+    if arch not in _MODULES:
+        raise KeyError(f"arch {arch!r} is not ported (see ROADMAP.md); "
+                       f"ported: {ARCHS}")
+    return importlib.import_module(_MODULES[arch])
+
+
+def get_config(arch):
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch):
+    return _module(arch).SMOKE
+
+
+def list_archs():
+    return list(ARCHS)

@@ -7,6 +7,13 @@ an ``nn.ModuleDict`` whose parameter names are the same key paths joined by
 "." (``policy.embed.w``) with the same shapes, so converting is a rename.
 Inputs are numpy arrays (``np.asarray`` of a JAX leaf works); outputs on
 the JAX side are numpy arrays.
+
+The language models' parameters (``lm_params_from_jax``/``lm_params_to_jax``)
+are the same rename plus an unstack: the reference keeps the layers as one
+stack with a leading L axis (``layers.attn.wq.w`` is (L, d, H·D)), the port
+one module per layer (``layers.3.attn.wq.w``). bf16 leaves travel as float32
+NumPy arrays (every bf16 value is exact in float32), so the port needs no
+NumPy bf16 type.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from torch import nn
 
 from repro_torch.core import networks as nets
 from repro_torch.device import resolve_device
+from repro_torch.models.decoder import DecoderLM
 
 
 def flatten_tree(tree, prefix=""):
@@ -103,3 +111,43 @@ def adamw_state_to_jax(opt):
 
     return {"m": nested(opt["m"]), "v": nested(opt["v"]),
             "step": np.asarray(opt["step"].cpu().numpy(), np.int32)}
+
+
+def lm_params_from_jax(cfg, tree, *, device=None) -> DecoderLM:
+    """The JAX package's decoder params (nested dict of NumPy arrays, the
+    layer stack with its leading L axis) -> the port's ``DecoderLM`` on
+    ``device`` (None: the CUDA device). bf16 leaves become bf16 tensors,
+    float32 leaves float32 ones."""
+    state = {}
+    for name, leaf in flatten_tree(tree).items():
+        bf16 = np.asarray(leaf).dtype.name == "bfloat16"
+        t = torch.from_numpy(np.array(leaf, np.float32))
+        t = t.to(torch.bfloat16) if bf16 else t
+        if name.startswith("layers."):
+            rest = name[len("layers."):]
+            state.update({f"layers.{i}.{rest}": t[i].clone()
+                          for i in range(t.shape[0])})
+        else:
+            state[name] = t
+    with torch.device("meta"):   # the structure only; no weights drawn
+        model = DecoderLM(cfg)
+    model.load_state_dict(state, strict=True, assign=True)
+    return model.to(resolve_device(device))
+
+
+def lm_params_to_jax(model: DecoderLM):
+    """The port's ``DecoderLM`` -> the JAX package's nested dict, the layers
+    stacked on a leading L axis, as float32 NumPy arrays (cast bf16 leaves
+    back with ``jnp.asarray(x, jnp.bfloat16)``; the values are exact)."""
+    flat, layers = {}, {}
+    for name, p in model.named_parameters():
+        arr = p.detach().to(torch.float32).cpu().numpy()
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            layers.setdefault(rest, {})[int(i)] = arr
+        else:
+            flat[name] = arr
+    for rest, per_layer in layers.items():
+        flat[f"layers.{rest}"] = np.stack([per_layer[i] for i in
+                                           range(len(per_layer))])
+    return unflatten_tree(flat)

@@ -4,6 +4,9 @@
               (replaces repro/kernels/sim_step's two Pallas kernels)
   contention/ the fleet's per-substep contention solve across envs and
               substeps (replaces repro/kernels/contention's Pallas kernel)
+  flash_attention/
+              causal flash attention, the prefill of every attention layer
+              (replaces repro/kernels/flash_attention's Pallas kernel)
 
 Each kernel ships a CUDA C++ source under ``repro_torch/csrc/``, kernel.py
 (the ctypes binding and launch), ops.py (the checked wrapper with its

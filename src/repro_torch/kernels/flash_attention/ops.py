@@ -1,0 +1,59 @@
+"""Wrapper of causal flash attention (K4).
+
+A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor
+launches the CUDA kernel (``csrc/flash_attention.cu``) or raises. The
+wrapper counts its launches in ``flash_attention.launches``, so a run can
+show that its main path went through the kernel."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import kernel
+from repro_torch.kernels.flash_attention.ref import attention_reference
+
+
+def flash_attention(q, k, v, *, window=None):
+    """q: (B,S,Hq,D); k/v: (B,Skv,Hkv,D) -> (B,S,Hq,D) in q's dtype.
+
+    Causal attention over positions counted from 0 (the prefill path; the
+    decode path reads the cache instead), limited to the last ``window``
+    keys when given; GQA when Hkv divides Hq. float32 or bf16."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("flash_attention takes (B, S, H, D) tensors")
+    B, S, Hq, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"flash_attention shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if Hq % k.shape[2]:
+        raise ValueError(f"{k.shape[2]} kv heads do not divide {Hq} q heads")
+    if q.dtype not in (torch.float32, torch.bfloat16) or not (
+            q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"flash_attention takes float32 or bf16 alike, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if window is not None and (int(window) != window or window < 1):
+        raise ValueError(f"window must be a count >= 1, got {window!r}")
+    devices = {q.device, k.device, v.device}
+    if len(devices) != 1:
+        raise ValueError(f"flash_attention inputs on several devices: "
+                         f"{devices}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return attention_reference(q, k, v, window=window)
+    if device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CUDA or the CPU, not "
+                         f"{device}")
+    if D not in kernel.HEAD_DIMS:
+        raise ValueError(f"the flash_attention kernel takes head dims "
+                         f"{kernel.HEAD_DIMS}, got {D}")
+    for t in (q, k, v):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("flash_attention takes contiguous tensors on "
+                             "16-byte boundaries")
+    out = kernel.launch(q, k, v, window=None if window is None
+                        else int(window))
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

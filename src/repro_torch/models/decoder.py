@@ -1,0 +1,213 @@
+"""Transformer decoder (port of ``repro.models.decoder``), the dense
+(llama-style) family: pre-norm blocks of grouped-query attention with the
+standard rope and a SwiGLU MLP, RMSNorm, tied or separate read-out.
+
+The reference scans a stack of layers whose parameters carry a leading L
+axis; here the layers are a ``ModuleList`` run in a Python loop, and the
+serving cache is a list of per-layer KV caches. Parameter names are the
+reference's key paths with the layer index in place of the stacked axis
+(``layers.3.attn.wq.w`` is ``layers.attn.wq.w[3]``), so converting is a
+rename and an unstack (``repro_torch.convert``).
+
+Still to port (ROADMAP.md): the MoE and VLM families, MLA, partial rope
+and M-RoPE, the GELU MLP, and the training objective ``loss_fn``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.nn import attention as attn
+from repro_torch.nn import layers as nnl
+from repro_torch.nn.rotary import apply_rope
+
+NEG_INF = -1e30
+PARAM_DTYPE = torch.bfloat16   # the reference's parameter dtype
+
+
+def _unported(what):
+    return NotImplementedError(f"{what} is not ported yet (see ROADMAP.md)")
+
+
+def _check_supported(cfg):
+    if cfg.family != "dense":
+        raise _unported(f"the {cfg.family!r} family")
+    if cfg.use_mla:
+        raise _unported("MLA")
+    if cfg.rope != "standard":
+        raise _unported(f"rope {cfg.rope!r}")
+    if cfg.mlp != "swiglu":
+        raise _unported(f"the {cfg.mlp!r} MLP")
+
+
+# ---------------------------------------------------------------------------
+# Rope plumbing
+# ---------------------------------------------------------------------------
+
+def _rope_fn(cfg, positions):
+    """Rope closure for full-sequence attention. positions: (B, S)."""
+    return lambda q, k: apply_rope(q, k, positions, theta=cfg.rope_theta)
+
+
+def _rope_fn_decode(cfg):
+    """Rope closure for decode: (q, k, pos (B, 1)) -> (q, k)."""
+    return lambda q, k, pos: apply_rope(q, k, pos, theta=cfg.rope_theta)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+class Embedding(nn.Module):
+    """The (vocab_padded, d_model) table, named ``embed`` as in the
+    reference, drawn with stddev 1/sqrt(d_model)."""
+
+    def __init__(self, vocab, d_model, *, generator=None):
+        super().__init__()
+        self.embed = nn.Parameter(nnl.truncated_normal(
+            (vocab, d_model), 1.0 / math.sqrt(d_model),
+            generator).to(PARAM_DTYPE))
+
+
+class Block(nn.Module):
+    def __init__(self, cfg, *, generator=None):
+        super().__init__()
+        self.attn_norm = nnl.RMSNorm(cfg.d_model, dtype=PARAM_DTYPE)
+        self.ffn_norm = nnl.RMSNorm(cfg.d_model, dtype=PARAM_DTYPE)
+        self.attn = attn.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.head_dim, qkv_bias=cfg.qkv_bias,
+                                   generator=generator, dtype=PARAM_DTYPE)
+        self.ffn = nnl.SwiGLU(cfg.d_model, cfg.d_ff, generator=generator,
+                              dtype=PARAM_DTYPE)
+
+
+class DecoderLM(nn.Module):
+    """The dense decoder's parameters: ``embed.embed``, ``final_norm.scale``,
+    ``lm_head.w`` when the embeddings are not tied, and ``layers.<i>.*``."""
+
+    def __init__(self, cfg, *, generator=None):
+        super().__init__()
+        _check_supported(cfg)
+        self.embed = Embedding(cfg.vocab_padded, cfg.d_model,
+                               generator=generator)
+        self.final_norm = nnl.RMSNorm(cfg.d_model, dtype=PARAM_DTYPE)
+        if not cfg.tie_embeddings:
+            self.lm_head = nnl.Linear(cfg.d_model, cfg.vocab_padded,
+                                      use_bias=False, generator=generator,
+                                      dtype=PARAM_DTYPE)
+        self.layers = nn.ModuleList(Block(cfg, generator=generator)
+                                    for _ in range(cfg.n_layers))
+
+
+def init(cfg, seed=0, *, device=None):
+    """Parameters drawn from a ``torch.Generator`` seeded with ``seed``:
+    truncated normals with the reference's stddevs (1/sqrt(d_in) for every
+    matrix, 1/sqrt(d_model) for the embedding), unit norm scales, drawn in
+    float32 on the CPU and cast to bf16 (the reference's parameter dtype),
+    then moved to ``device`` (None: the CUDA device). The same seed gives
+    the same weights on every device."""
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    return DecoderLM(cfg, generator=gen).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def _attn_kw(cfg):
+    return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.head_dim,
+                mode="sliding" if cfg.window else "causal",
+                window=cfg.window or None, backend=cfg.attn_backend,
+                chunk=cfg.attn_chunk)
+
+
+def _block_prefill(cfg, p, x, cache_l, extra):
+    positions, mask_pos = extra["positions"], extra["mask_positions"]
+    h = p.attn_norm(x, eps=cfg.norm_eps)
+    a, cache_l = attn.attention_prefill(p.attn, h, mask_pos, cache_l,
+                                        rope_fn=_rope_fn(cfg, positions),
+                                        **_attn_kw(cfg))
+    x = x + a
+    h = p.ffn_norm(x, eps=cfg.norm_eps)
+    return x + p.ffn(h), cache_l
+
+
+def _block_decode(cfg, p, x, cache_l):
+    h = p.attn_norm(x, eps=cfg.norm_eps)
+    a, cache_l = attn.attention_decode(
+        p.attn, h, cache_l, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, rope_fn=_rope_fn_decode(cfg),
+        window=cfg.window or None)
+    x = x + a
+    h = p.ffn_norm(x, eps=cfg.norm_eps)
+    return x + p.ffn(h), cache_l
+
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
+
+def _embed(cfg, params, batch):
+    return nnl.embedding(params.embed.embed, batch["tokens"])
+
+
+def _positions(cfg, batch):
+    B, S = batch["tokens"].shape
+    mask_pos = torch.arange(S, dtype=torch.int32,
+                            device=batch["tokens"].device)
+    return mask_pos[None].expand(B, S), mask_pos
+
+
+def _readout(cfg, params, x):
+    x = params.final_norm(x, eps=cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = nnl.embedding_logits(params.embed.embed, x)
+    else:
+        logits = (x @ params.lm_head.w).to(torch.float32)
+    if cfg.vocab_padded != cfg.vocab:  # mask padding rows out of the softmax
+        pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab
+        logits = logits + torch.where(pad, NEG_INF, 0.0)
+    return logits
+
+
+def loss_fn(cfg, params, batch):
+    raise _unported("training (loss_fn)")
+
+
+def init_cache(cfg, batch, max_len, *, device=None):
+    """One bf16 KV cache per layer, as the reference's (whatever the
+    parameters' dtype), on ``device`` (None: the CUDA device)."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    return {"layers": [attn.init_kv_cache(batch, max_len, cfg.n_kv_heads,
+                                          cfg.head_dim,
+                                          window=cfg.window or None,
+                                          device=device)
+                       for _ in range(cfg.n_layers)]}
+
+
+def prefill(cfg, params, batch, cache):
+    """batch["tokens"] (B, S) -> (last-position logits (B, Vp) float32,
+    cache)."""
+    x = _embed(cfg, params, batch)
+    positions, mask_pos = _positions(cfg, batch)
+    extra = {"positions": positions, "mask_positions": mask_pos}
+    for p_l, c_l in zip(params.layers, cache["layers"]):
+        x, _ = _block_prefill(cfg, p_l, x, c_l, extra)
+    logits = _readout(cfg, params, x[:, -1:, :])
+    return logits[:, 0], cache
+
+
+def decode_step(cfg, params, cache, tokens):
+    """tokens: (B, 1) -> (logits (B, Vp), cache)."""
+    x = nnl.embedding(params.embed.embed, tokens)
+    for p_l, c_l in zip(params.layers, cache["layers"]):
+        x, _ = _block_decode(cfg, p_l, x, c_l)
+    logits = _readout(cfg, params, x)
+    return logits[:, 0], cache

@@ -1,0 +1,241 @@
+"""Grouped-query attention (port of ``repro.nn.attention``): rope through a
+closure, causal / sliding-window / full masking, three backends, and the
+KV-cache prefill and decode paths.
+
+Backends
+  'full'    — materialize (B,H,S,S) scores.
+  'chunked' — online softmax over KV chunks, O(S·C) live memory.
+  'pallas'  — the flash-attention kernel (K4, ``repro_torch.kernels.
+              flash_attention``): the CUDA kernel on the card, its plain
+              version on the CPU. Cross-attention and decode fall through
+              to 'full', as in the reference.
+'chunked_tri' (the reference's triangular block pairs) is still to port.
+
+Shapes: x (B, S, d_model); q (B, S, Hq, D); k/v (B, S, Hkv, D). The KV
+cache is a dict of tensors {"k", "v" (B, slots, Hkv, D), "pos" (B, slots),
+"len" (B,)}; prefill and decode write it IN PLACE and return the same dict
+(the reference returns a new one; no caller keeps the old cache).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.nn.layers import Linear, linear
+
+NEG_INF = -1e30
+
+
+class Attention(nn.Module):
+    """The projections ``wq``, ``wk``, ``wv`` (d_model -> heads * head_dim)
+    and ``wo`` (back), as the reference's ``attention_init`` names them."""
+
+    def __init__(self, d_model, n_heads, n_kv_heads, head_dim, *,
+                 qkv_bias=False, generator=None, dtype=torch.bfloat16):
+        super().__init__()
+        kw = dict(generator=generator, dtype=dtype)
+        self.wq = Linear(d_model, n_heads * head_dim, use_bias=qkv_bias, **kw)
+        self.wk = Linear(d_model, n_kv_heads * head_dim, use_bias=qkv_bias,
+                         **kw)
+        self.wv = Linear(d_model, n_kv_heads * head_dim, use_bias=qkv_bias,
+                         **kw)
+        self.wo = Linear(n_heads * head_dim, d_model, use_bias=False, **kw)
+
+
+def _project_qkv(params, x, x_kv, n_heads, n_kv_heads, head_dim):
+    B, S = x.shape[:2]
+    Skv = x_kv.shape[1]
+    q = params.wq(x).reshape(B, S, n_heads, head_dim)
+    k = params.wk(x_kv).reshape(B, Skv, n_kv_heads, head_dim)
+    v = params.wv(x_kv).reshape(B, Skv, n_kv_heads, head_dim)
+    return q, k, v
+
+
+def _repeat_kv(k, n_heads):
+    """(B,S,Hkv,D) -> (B,S,Hq,D) by repeating each kv head over its group."""
+    rep = n_heads // k.shape[2]
+    if rep == 1:
+        return k
+    return torch.repeat_interleave(k, rep, dim=2)
+
+
+def _mask_bias(q_pos, k_pos, mode, window):
+    """(Sq, Sk) additive bias in fp32. q_pos/k_pos are int vectors."""
+    if mode == "full":
+        return None
+    diff = q_pos[:, None] - k_pos[None, :]
+    ok = diff >= 0
+    if mode == "sliding":
+        ok = ok & (diff < window)
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
+def _f32_scores(q, k):
+    """einsum('bqhd,bkhd->bhqk') accumulated in float32 (the reference's
+    ``preferred_element_type=float32``)."""
+    return torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                        k.to(torch.float32))
+
+
+def sdpa_full(q, k, v, q_pos, k_pos, *, mode="causal", window=None,
+              k_len=None):
+    """Materialized softmax(QK^T)V with fp32 scores; the probabilities are
+    cast to q's dtype before the product with V, as in the reference."""
+    n_heads = q.shape[2]
+    k = _repeat_kv(k, n_heads)
+    v = _repeat_kv(v, n_heads)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = _f32_scores(q, k) * scale
+    bias = _mask_bias(q_pos, k_pos, mode, window)
+    if bias is not None:
+        scores = scores + bias[None, None]
+    if k_len is not None:  # decode: mask out unwritten cache slots
+        valid = k_pos[None, :] < k_len[:, None]                    # (B, Sk)
+        scores = scores + torch.where(valid, 0.0, NEG_INF)[:, None, None, :]
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(q.dtype))
+
+
+def sdpa_chunked(q, k, v, q_pos, k_pos, *, mode="causal", window=None,
+                 k_len=None, chunk=1024):
+    """Flash-style online softmax over KV chunks (the reference's lax.scan
+    as a loop): O(B·Sq·H·D + B·C·H·D) live memory instead of O(B·H·Sq·Sk).
+    """
+    B, Sq, Hq, D = q.shape
+    Dv = v.shape[-1]
+    Skv = k.shape[1]
+    chunk = min(chunk, Skv)
+    n_chunks = (Skv + chunk - 1) // chunk
+    pad = n_chunks * chunk - Skv
+    int_max = torch.iinfo(torch.int32).max
+    if pad:
+        k = nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = nn.functional.pad(k_pos, (0, pad), value=int_max)
+    k = _repeat_kv(k, Hq)
+    v = _repeat_kv(v, Hq)
+    scale = 1.0 / math.sqrt(D)
+    m = torch.full((B, Hq, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hq, Sq, Dv), dtype=torch.float32, device=q.device)
+    for c in range(n_chunks):
+        kc = k[:, c * chunk:(c + 1) * chunk]
+        vc = v[:, c * chunk:(c + 1) * chunk]
+        kp = k_pos[c * chunk:(c + 1) * chunk]
+        s = _f32_scores(q, kc) * scale
+        bias = _mask_bias(q_pos, kp, mode, window)
+        if bias is not None:
+            s = s + bias[None, None]
+        else:  # 'full' mode: still mask chunk-padding slots (pos == INT32_MAX)
+            s = s + torch.where(kp == int_max, NEG_INF, 0.0)[None, None, None, :]
+        if k_len is not None:
+            valid = kp[None, :] < k_len[:, None]
+            s = s + torch.where(valid, 0.0, NEG_INF)[:, None, None, :]
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(q.dtype).to(torch.float32),
+                          vc.to(torch.float32))
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-37)[..., None]
+    return out.transpose(1, 2).to(q.dtype)  # (B,Sq,Hq,Dv)
+
+
+def _sdpa(q, k, v, q_pos, k_pos, *, backend, mode, window, k_len=None,
+          chunk=1024):
+    if backend == "chunked_tri":
+        raise NotImplementedError("attn_backend 'chunked_tri' is not ported "
+                                  "yet (see ROADMAP.md)")
+    if backend == "chunked":
+        return sdpa_chunked(q, k, v, q_pos, k_pos, mode=mode, window=window,
+                            k_len=k_len, chunk=chunk)
+    if backend == "pallas":
+        if k_len is None and mode in ("causal", "sliding"):
+            return flash_attention(q, k, v, window=window)
+        # fall through for cross/decode paths the kernel does not cover
+    return sdpa_full(q, k, v, q_pos, k_pos, mode=mode, window=window,
+                     k_len=k_len)
+
+
+# ---------------------------------------------------------------------------
+# KV cache (decode). For sliding-window attention the cache is a ring buffer
+# of ``window`` slots; otherwise it holds max_len slots.
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(batch, max_len, n_kv_heads, head_dim, *, window=None,
+                  dtype=torch.bfloat16, device=None):
+    slots = min(max_len, window) if window else max_len
+    return {
+        "k": torch.zeros((batch, slots, n_kv_heads, head_dim), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, slots, n_kv_heads, head_dim), dtype=dtype,
+                         device=device),
+        # absolute position per slot
+        "pos": torch.full((batch, slots), -1, dtype=torch.int32,
+                          device=device),
+        "len": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def attention_prefill(params, x, positions, cache, **kw):
+    """Run full-sequence attention and write the last ``slots`` keys and
+    values into the cache. Returns (output, cache)."""
+    n_heads, n_kv_heads, head_dim = kw["n_heads"], kw["n_kv_heads"], kw["head_dim"]
+    q, k, v = _project_qkv(params, x, x, n_heads, n_kv_heads, head_dim)
+    if kw.get("rope_fn") is not None:
+        q, k = kw["rope_fn"](q, k)
+    q_pos = positions[0] if positions.ndim > 1 else positions
+    out = _sdpa(q, k, v, q_pos, q_pos, backend=kw.get("backend", "chunked"),
+                mode=kw.get("mode", "causal"), window=kw.get("window"),
+                chunk=kw.get("chunk", 1024))
+    B, S = x.shape[:2]
+    slots = cache["k"].shape[1]
+    take = min(S, slots)
+    idx = ((q_pos[-take:] % slots).long() if kw.get("window")
+           else torch.arange(take, device=x.device))
+    cache["k"][:, idx] = k[:, -take:].to(cache["k"].dtype)
+    cache["v"][:, idx] = v[:, -take:].to(cache["v"].dtype)
+    cache["pos"][:, idx] = q_pos[None, -take:].to(torch.int32)
+    cache["len"] += S
+    return params.wo(out.reshape(B, S, n_heads * head_dim)), cache
+
+
+def attention_decode(params, x, cache, *, n_heads, n_kv_heads, head_dim,
+                     rope_fn=None, window=None):
+    """One-token decode step. x: (B, 1, d_model). Returns (out, cache)."""
+    B = x.shape[0]
+    q, k, v = _project_qkv(params, x, x, n_heads, n_kv_heads, head_dim)
+    pos = cache["len"].clone()  # (B,) absolute position of the new token
+    if rope_fn is not None:
+        q, k = rope_fn(q, k, pos[:, None])
+    slots = cache["k"].shape[1]
+    # the reference's slot rule: a full non-window cache overwrites its last
+    # slot
+    slot = (pos % slots if window
+            else torch.clamp_max(pos, slots - 1)).long()
+    bidx = torch.arange(B, device=x.device)
+    cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+    cache["pos"][bidx, slot] = pos
+    cache["len"].copy_(pos + 1)
+
+    kc = _repeat_kv(cache["k"], n_heads)
+    vc = _repeat_kv(cache["v"], n_heads)
+    scale = 1.0 / math.sqrt(head_dim)
+    s = _f32_scores(q, kc) * scale
+    # validity: slot written (pos >= 0), within window if sliding
+    kpos = cache["pos"]  # (B, slots)
+    ok = (kpos >= 0) & (kpos <= pos[:, None])
+    if window:
+        ok = ok & (pos[:, None] - kpos < window)
+    s = s + torch.where(ok, 0.0, NEG_INF)[:, None, None, :]
+    dt = torch.promote_types(q.dtype, vc.dtype)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(dt), vc.to(dt))
+    return params.wo(out.reshape(B, 1, n_heads * head_dim)), cache

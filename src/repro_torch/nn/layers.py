@@ -1,10 +1,12 @@
-"""The layers the port's networks use (port of ``repro.nn.layers``'s
-``linear`` and ``layernorm``).
+"""The layers the port's networks and language models use (port of
+``repro.nn.layers``: ``linear``, ``layernorm``, ``rmsnorm``,
+``embedding``, ``embedding_logits`` and ``swiglu``).
 
 Weights keep the JAX package's layout — ``w`` is (d_in, d_out) and a layer
 computes ``x @ w + b`` — so a parameter's name and shape are those of the
 reference tree (``embed.w``, ``b0.ln1.scale``, ...), and converting between
-the two is a rename (``repro_torch.convert``).
+the two is a rename (``repro_torch.convert``). Norms accumulate in float32
+and return the input's dtype, as the reference's do.
 """
 
 from __future__ import annotations
@@ -42,14 +44,43 @@ def layernorm(scale, bias, x, *, eps=1e-5):
     return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
 
 
+def rmsnorm(scale, x, *, eps=1e-6):
+    """RMSNorm over the last axis, accumulated in float32."""
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32)).to(x.dtype)
+
+
+def embedding(embed, tokens):
+    return embed[tokens]
+
+
+def embedding_logits(embed, x):
+    """The tied read-out x @ embed.T with float32 logits: the operands are
+    taken to float32 first, so the logits are never rounded to bf16 (the
+    reference's ``preferred_element_type=float32``)."""
+    return x.to(torch.float32) @ embed.to(torch.float32).T
+
+
+def swiglu(gate_w, up_w, down_w, x):
+    """down(silu(x @ gate) * (x @ up)), in the input's dtype."""
+    g = torch.nn.functional.silu(x @ gate_w)
+    return (g * (x @ up_w)) @ down_w
+
+
 class Linear(nn.Module):
+    """``x @ w + b`` with ``w`` (d_in, d_out) drawn from a truncated normal
+    (stddev 1/sqrt(d_in) by default) and cast to ``dtype``."""
+
     def __init__(self, d_in, d_out, *, use_bias=True, stddev=None,
-                 generator=None):
+                 generator=None, dtype=torch.float32):
         super().__init__()
         stddev = stddev if stddev is not None else 1.0 / math.sqrt(d_in)
         self.w = nn.Parameter(truncated_normal((d_in, d_out), stddev,
-                                               generator))
-        self.b = (nn.Parameter(torch.zeros(d_out)) if use_bias else None)
+                                               generator).to(dtype))
+        self.b = (nn.Parameter(torch.zeros(d_out, dtype=dtype)) if use_bias
+                  else None)
 
     def forward(self, x):
         return linear(self.w, self.b, x)
@@ -63,3 +94,27 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return layernorm(self.scale, self.bias, x)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d, *, dtype=torch.float32):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, dtype=dtype))
+
+    def forward(self, x, *, eps=1e-6):
+        return rmsnorm(self.scale, x, eps=eps)
+
+
+class SwiGLU(nn.Module):
+    """The llama MLP; parameters ``gate.w``, ``up.w``, ``down.w``."""
+
+    def __init__(self, d_model, d_ff, *, generator=None,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = dict(use_bias=False, generator=generator, dtype=dtype)
+        self.gate = Linear(d_model, d_ff, **kw)
+        self.up = Linear(d_model, d_ff, **kw)
+        self.down = Linear(d_ff, d_model, **kw)
+
+    def forward(self, x):
+        return swiglu(self.gate.w, self.up.w, self.down.w, x)

@@ -1,7 +1,11 @@
 """The port stands alone: ``import repro_torch`` (and every submodule) works
 with JAX blocked and loads nothing of the JAX package, no source under
 ``src/repro_torch`` imports either, and the modules the port copies from
-the JAX package (JAX-free there) run the same code as their originals."""
+the JAX package (JAX-free there) run the same code as their originals. The
+config registry is a narrowed copy: the same code apart from the list of
+archs, which holds only the ported ones, and the refusal of the others."""
+
+import dataclasses
 
 import ast
 import os
@@ -26,7 +30,13 @@ COPIES = {"transfer/engine.py": "transfer/engine.py",
           "core/exploration.py": "core/exploration.py",
           "scenarios/families.py": "scenarios/families.py",
           "core/globus.py": "core/globus.py",
-          "core/marlin.py": "core/marlin.py"}
+          "core/marlin.py": "core/marlin.py",
+          "models/config.py": "models/config.py",
+          "configs/smollm_135m.py": "configs/smollm_135m.py",
+          "configs/registry.py": "configs/registry.py"}
+# narrowed copies: the top-level names whose definitions may differ from
+# the original's (checked by test_registry_narrows_the_reference_registry)
+NARROWED = {"configs/registry.py": ("ARCHS", "_module")}
 # the port's CPU-only twin -> the reference name it stands for: the port's
 # entry point runs on the card by default, the NumPy copy reads it on the host
 HOST_TWINS = {"_always_on_host": "always_on"}
@@ -64,12 +74,21 @@ def test_no_source_imports_jax_or_the_reference_package():
     assert not offenders, offenders
 
 
-def _code(path):
-    """The module's code as an AST dump, import names normalised from
-    repro_torch to repro and host twins to their names, docstrings dropped (comments never reach the
-    AST): what the copy runs, not how it is worded."""
+def _code(path, drop=()):
+    """The module's code as an AST dump, import names and module-path
+    strings normalised from repro_torch to repro and host twins to their
+    names, docstrings and the top-level definitions of ``drop`` dropped
+    (comments never reach the AST): what the copy runs, not how it is
+    worded."""
     tree = ast.parse(path.read_text())
+    tree.body = [n for n in tree.body if not (
+        isinstance(n, ast.FunctionDef) and n.name in drop
+        or isinstance(n, ast.Assign) and any(
+            isinstance(t, ast.Name) and t.id in drop for t in n.targets))]
     for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and node.value.startswith("repro_torch.")):
+            node.value = "repro." + node.value[len("repro_torch."):]
         if isinstance(node, ast.ImportFrom) and node.module:
             node.module = re.sub(r"^repro_torch\b", "repro", node.module)
             for alias in node.names:
@@ -87,8 +106,26 @@ def _code(path):
 
 def test_copied_modules_equal_their_originals():
     for port, orig in COPIES.items():
-        assert _code(PORT / port) == _code(SRC / "repro" / orig), (
+        drop = NARROWED.get(port, ())
+        assert (_code(PORT / port, drop)
+                == _code(SRC / "repro" / orig, drop)), (
             f"repro_torch/{port} drifted from repro/{orig}")
+
+
+def test_registry_narrows_the_reference_registry():
+    """The port's registry lists a subset of the reference's archs, gives
+    each the reference's published and SMOKE configs field for field, and
+    refuses every other arch with a KeyError naming ROADMAP.md."""
+    from repro.configs import registry as ref
+    from repro_torch.configs import registry as port
+    assert port.ARCHS and set(port.ARCHS) <= set(ref.ARCHS)
+    for arch in port.ARCHS:
+        for get in ("get_config", "get_smoke_config"):
+            assert (dataclasses.asdict(getattr(port, get)(arch))
+                    == dataclasses.asdict(getattr(ref, get)(arch)))
+    for arch in sorted(set(ref.ARCHS) - set(port.ARCHS)) + ["no-such"]:
+        with pytest.raises(KeyError, match="ROADMAP.md"):
+            port.get_config(arch)
 
 
 def test_cursor_checkpoints_are_readable_across_packages(tmp_path):
