@@ -8,8 +8,9 @@ csrc`` and drives the paper's loop and the multi-flow fleet through the
 port's entry points:
 
   1. device     the card's name and power limit (nvidia-smi)
-  2. build      nvcc builds the kernel libraries from csrc/sim_step.cu and
-                csrc/contention.cu, one nvcc each, started together
+  2. build      nvcc builds the kernel libraries from csrc/*.cu (sim_step,
+                contention, flash_attention, ssd_scan), one nvcc each,
+                started together
   3. parity     each kernel against its plain PyTorch version on the same
                 CUDA tensors, at the main path's shapes (1 env for the
                 probes, 32 for training) and at 16384 envs; kernel, plain
@@ -47,6 +48,16 @@ port's entry points:
                 decode); finite logits, agreement with the 'full' backend,
                 decode against a longer prefill, and a profile of one
                 prefill and one decode step
+ 12. ssd scan   the SSD chunked-scan kernel against its plain version at
+                mamba2-1.3b's prefill shape (bf16 and float32), a ragged S,
+                zamba2-1.2b's mixer shape and a grouped shape; y and final
+                state errors, kernel, device, plain and bound times
+ 13. mamba2     repro_torch.launch.serve at the full mamba2-1.3b config (8
+                prompts of 1024 tokens, 32 greedy tokens each): the scan
+                kernel launched once per layer in the prefill and never in
+                decode; finite logits, agreement with a prefill through the
+                plain scan, decode against a longer prefill, and a profile
+                of one prefill and one decode step
 
 It prints its findings on earlier lines, one JSON line with every kernel's
 numbers, the nvidia-smi line, and ends with the line
@@ -139,6 +150,37 @@ SERVE_SEED = 0
 # allow (0.071 at this phase's shapes on an H100)
 SERVE_ATOL = 0.15
 SERVE_RTOL = 0.15
+# K5 (SSD chunked scan) shapes, name: (b, s, h, p, g, n, dtype): mamba2-1.3b's
+# prefill in phase 13 (8 prompts of 1024 tokens, 64 heads of 64, one B/C
+# group, state 128) in bf16 and float32, a ragged S, zamba2-1.2b's mixer
+# (state 64), and 4 B/C groups over 8 heads
+SSD_SHAPES = {
+    "mamba2_bf16": (8, 1024, 64, 64, 1, 128, "bfloat16"),
+    "mamba2_f32": (8, 1024, 64, 64, 1, 128, "float32"),
+    "ragged": (8, 1000, 64, 64, 1, 128, "bfloat16"),
+    "zamba2": (8, 1024, 64, 64, 1, 64, "bfloat16"),
+    "grouped": (8, 1024, 8, 64, 4, 128, "bfloat16"),
+}
+SSD_CHUNK = 128
+# the reference's own SSD tolerances (tests/test_kernels.py), as atol and
+# rtol: the same float32 math summed in another order, and in bf16 y
+# rounded once from float32 in both
+SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# phase 13: mamba2-1.3b at full width, the same greedy loop as phase 11;
+# its logit checks use the reference's bf16 model tolerance (SERVE_ATOL,
+# SERVE_RTOL)
+SSM_ARCH = "mamba2-1.3b"
+# K5 against the plain scan over the whole 48-layer bf16 prefill: a bf16
+# rounding of y that flips with the float32 summation order (one or two
+# ulps, a layer's y within 0.11 of SSD_TOL) compounds through the layers,
+# so two plain versions of the same function differ by as much: this
+# phase's plain scan at chunk 64 and at chunk 128 gave logits 0.183 apart
+# (mean 0.031, greedy tokens agreeing on 7 of 8 rows) where K5 and the
+# plain scan gave 0.182 (mean 0.031, 8 of 8; an H100 at 700 W). The kernel
+# is held per layer on the path's own activations at SSD_TOL; the logits
+# within twice SERVE_ATOL, and the greedy token within SERVE_ATOL +
+# SERVE_RTOL of the top logit
+SSM_E2E_ATOL = 2 * SERVE_ATOL
 
 
 def fail(msg):
@@ -231,6 +273,29 @@ def fa_bound(B, S, Hq, Hkv, D, window, dtype):
     w = min(window or S, S)
     live = w * (w + 1) // 2 + (S - w) * w
     n_ops = 4 * B * Hq * D * live
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
+    terms = {"bytes_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "ops_ms": n_ops / rate * 1e3, "gflop": n_ops / 1e9,
+             "mbytes": n_bytes / 1e6}
+    by = "bytes" if terms["bytes_ms"] >= terms["ops_ms"] else "operations"
+    return max(terms["bytes_ms"], terms["ops_ms"]), by, terms
+
+
+def ssd_bound(b, s, h, p, g, n, dtype, chunk=SSD_CHUNK):
+    """K5's bound at one shape: x, B, C, dt and A read once, y and the final
+    state written once, over the memory rate; and the live products of
+    this length over the peak rate of the inputs' type (bf16 tensor cores;
+    float32 outside them): C B^T once per (batch, group, chunk) on its
+    lower triangle, the masked product with x * dt on the lower triangle,
+    C h^T past the first chunk (h is zero there) and the state update, 2
+    operations a multiply-add."""
+    esize = 2 if dtype == "bfloat16" else 4
+    n_bytes = (esize * (2 * b * s * h * p + 2 * b * s * g * n)
+               + 4 * (b * s * h + h + b * h * p * n))
+    lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
+    tri = sum(q * (q + 1) // 2 for q in lens)
+    n_ops = 2 * (b * g * tri * n + b * h * tri * p
+                 + b * h * (s - lens[0]) * n * p + b * h * s * p * n)
     rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
     terms = {"bytes_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
              "ops_ms": n_ops / rate * 1e3, "gflop": n_ops / 1e9,
@@ -341,20 +406,24 @@ def reset_launches():
     from repro_torch.kernels.sim_step import ops as sim_ops
     from repro_torch.kernels.contention import ops as k3_ops
     from repro_torch.kernels.flash_attention import ops as k4_ops
+    from repro_torch.kernels.ssd_scan import ops as k5_ops
     sim_ops.sim_interval_batch.launches = 0
     sim_ops.sim_step_batch.launches = 0
     k3_ops.contention_rates.launches = 0
     k4_ops.flash_attention.launches = 0
+    k5_ops.ssd_scan.launches = 0
 
 
 def read_launches():
     from repro_torch.kernels.sim_step import ops as sim_ops
     from repro_torch.kernels.contention import ops as k3_ops
     from repro_torch.kernels.flash_attention import ops as k4_ops
+    from repro_torch.kernels.ssd_scan import ops as k5_ops
     return {"sim_interval": sim_ops.sim_interval_batch.launches,
             "sim_step": sim_ops.sim_step_batch.launches,
             "contention": k3_ops.contention_rates.launches,
-            "flash_attention": k4_ops.flash_attention.launches}
+            "flash_attention": k4_ops.flash_attention.launches,
+            "ssd_scan": k5_ops.ssd_scan.launches}
 
 
 def fleet_params(dev):
@@ -769,6 +838,245 @@ def phase_serve(torch):
                 max_diff_step=float(d_step.max()))
 
 
+def ssd_operands(torch, b, s, h, p, g, n, dtype, seed):
+    """The reference test's distributions (tests/test_kernels.py): x, B, C
+    standard normal in ``dtype``, dt in [0.001, 0.1] and A in [-2, -0.5]
+    in float32, drawn on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt_ = getattr(torch, dtype)
+    normal = lambda *shape: torch.randn(shape, generator=gen,
+                                        device="cuda").to(dt_)
+    uniform = lambda lo, hi, *shape: lo + (hi - lo) * torch.rand(
+        shape, generator=gen, device="cuda")
+    return (normal(b, s, h, p), uniform(0.001, 0.1, b, s, h),
+            -uniform(0.5, 2.0, h), normal(b, s, g, n), normal(b, s, g, n))
+
+
+def allclose_ratio(torch, got, want, tol):
+    """max |got - want| / (tol + tol |want|): at most 1 where the
+    reference's assert_allclose(atol=tol, rtol=tol) holds."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (tol + tol * want.abs())).max())
+
+
+def phase_ssd(torch):
+    """12. K5 against its plain version at every shape of SSD_SHAPES: y and
+    final state within the reference's tolerances, kernel (CUDA events),
+    device (profiler), plain and bound times. No single PyTorch call
+    computes the scan, so there is no library time."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_reference
+    rows = {}
+    for i, (name, (b, s, h, p, g, n, dtype)) in enumerate(SSD_SHAPES.items()):
+        args = ssd_operands(torch, b, s, h, p, g, n, dtype, seed=i)
+        kern = lambda: ops.ssd_scan(*args, chunk=SSD_CHUNK, return_state=True)
+        plain = lambda: ssd_reference(*args, chunk=SSD_CHUNK)
+        y, state = kern()
+        torch.cuda.synchronize()
+        want_y, want_state = plain()
+        tol = SSD_TOL[dtype]
+        err_y = float((y.float() - want_y.float()).abs().max())
+        err_state = float((state - want_state).abs().max())
+        ratio = max(allclose_ratio(torch, y, want_y, tol),
+                    allclose_ratio(torch, state, want_state, tol))
+        if not (ratio <= 1.0 and np.isfinite(err_y)
+                and np.isfinite(err_state)):
+            fail(f"ssd_scan {name}: y err {err_y}, state err {err_state}, "
+                 f"{ratio:.3g} of the tolerance {tol} (atol and rtol)")
+        b_ms, b_by, terms = ssd_bound(b, s, h, p, g, n, dtype)
+        row = dict(b=b, s=s, h=h, p=p, g=g, n=n, chunk=SSD_CHUNK,
+                   dtype=dtype, max_abs_err=err_y,
+                   max_abs_err_state=err_state, tol_ratio=ratio,
+                   max_abs_y=float(want_y.float().abs().max()),
+                   ms=time_ms(torch, kern, samples=10, inner=10),
+                   device_ms=device_ms(torch, kern, "ssd_scan_kernel", n=10),
+                   plain_ms=time_ms(torch, plain, samples=5, inner=3,
+                                    warmup=1),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                   bound_terms=terms)
+        rows[name] = row
+        print(f"[ssd] {name} b={b} s={s} h={h} p={p} g={g} n={n} {dtype}: "
+              f"y max_abs_err={err_y:.3g} (|y| max {row['max_abs_y']:.3g}), "
+              f"state max_abs_err={err_state:.3g}, {ratio:.3g} of the "
+              f"tolerance; ms={row['ms']} device_ms={row['device_ms']} "
+              f"plain_ms={row['plain_ms']} bound_ms={b_ms:.4g} ({b_by}; "
+              f"{json.dumps(terms)}) library_ms=null; kernel/bound "
+              f"{row['ms'] / b_ms:.1f}x, plain/kernel "
+              f"{row['plain_ms'] / row['ms']:.2f}x")
+    return rows
+
+
+def phase_mamba2(torch):
+    """13. Mamba2 serving: serve() at the full mamba2-1.3b config, counting
+    K5's launches, then checks on the same weights (the init is seeded)
+    and prompts: finite logits, the greedy token serve() chose, K5
+    launched once per layer per prefill and never in decode, K5 against
+    the plain scan on every layer's own inputs, the logits against a
+    prefill through the plain scan (beside the gap between two plain
+    scans, at chunk 128 and 64), decode against a longer prefill, and a
+    profile of one prefill and one decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import get_model
+    from repro_torch.nn.ssd import ssd_chunked
+    cfg = get_config(SSM_ARCH)
+    layer_ratios = []
+
+    def held_against_plain(x, dt, A, B, C, *, chunk):
+        """K5 on a layer's own inputs, held against the plain scan."""
+        y, state = ops.ssd_scan(x, dt, A, B, C, chunk=chunk,
+                                return_state=True)
+        want_y, want_state = ssd_chunked(x, dt, A, B, C, chunk=chunk)
+        tol = SSD_TOL[str(x.dtype).split(".")[-1]]
+        layer_ratios.append(max(allclose_ratio(torch, y, want_y, tol),
+                                allclose_ratio(torch, state, want_state,
+                                               tol)))
+        return y, state
+
+    def plain_half_chunk(x, dt, A, B, C, *, chunk):
+        """The plain scan at half the chunk: the same function, summed in
+        another order."""
+        return ssd_chunked(x, dt, A, B, C, chunk=chunk // 2)
+
+    B, P, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    reset_launches()
+    t0 = time.perf_counter()
+    toks, info = serve(cfg, batch=B, prompt_len=P, gen=G, seed=SERVE_SEED)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"[mamba2] {SSM_ARCH} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, d_inner {cfg.d_inner}, "
+          f"{cfg.d_inner // cfg.ssm_headdim} heads of {cfg.ssm_headdim}, "
+          f"state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab {cfg.vocab}, "
+          f"bf16): {B} prompts x {P} tokens, {G} greedy tokens each; "
+          f"prefill {info['prefill_s']:.4f} s, decode {info['decode_s']:.4f}"
+          f" s = {info['tok_per_s']:.1f} tokens/s; serve() {serve_s:.2f} s "
+          f"with the init; launches {json.dumps(launches)}")
+    if tuple(toks.shape) != (B, G) or not (
+            0 <= int(toks.min()) and int(toks.max()) < cfg.vocab):
+        fail(f"serve returned tokens {tuple(toks.shape)} out of range")
+    if launches != {**{k: 0 for k in launches}, "ssd_scan": cfg.n_layers}:
+        fail(f"mamba2 serving launched {json.dumps(launches)}, expected "
+             f"ssd_scan = {cfg.n_layers} (one prefill) and no other")
+
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SERVE_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    rng = np.random.default_rng(SERVE_SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, P),
+                                           dtype=np.int32)).cuda()
+    batch = {"tokens": tokens}
+    with torch.inference_mode():
+        reset_launches()
+        logits, cache = model.prefill(params, batch,
+                                      model.init_cache(B, P + G))
+        torch.cuda.synchronize()
+        n_prefill = read_launches()["ssd_scan"]
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        reset_launches()
+        step_logits, _ = model.decode_step(params, cache, tok)
+        torch.cuda.synchronize()
+        n_decode = read_launches()["ssd_scan"]
+        logits_plain, _ = model.prefill(params, batch,
+                                        model.init_cache(B, P + G),
+                                        ssd_fn=ssd_chunked)
+        logits_half, _ = model.prefill(params, batch,
+                                       model.init_cache(B, P + G),
+                                       ssd_fn=plain_half_chunk)
+        logits_held, _ = model.prefill(params, batch,
+                                       model.init_cache(B, P + G),
+                                       ssd_fn=held_against_plain)
+        short, c2 = model.prefill(params, {"tokens": tokens[:, :-1]},
+                                  model.init_cache(B, P + G))
+        consist, _ = model.decode_step(params, c2, tokens[:, -1:])
+        torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(x).all()) for x in
+                 (logits, step_logits, logits_plain, short, consist))
+    same_first = bool(torch.equal(tok[:, 0], toks[:, 0]))
+    live = slice(0, cfg.vocab)   # the padded rows are -1e30 in both
+    d_plain = (logits - logits_plain)[:, live].abs()
+    d_half = (logits_half - logits_plain)[:, live].abs()
+    d_step = (consist - logits)[:, live].abs()
+    tol = SERVE_ATOL + SERVE_RTOL * logits[:, live].abs()
+    top = logits.max(dim=-1).values
+    near_top = lambda other: bool(torch.all(
+        top - logits.gather(1, other.argmax(dim=-1, keepdim=True))[:, 0]
+        <= SERVE_ATOL + SERVE_RTOL * top.abs()))
+    plain_ratio = float((d_plain / tol).max())
+    step_ratio = float((d_step / tol).max())
+    step_ok = step_ratio <= 1.0 and near_top(consist)
+    plain_ok = (float(d_plain.max()) <= SSM_E2E_ATOL
+                and near_top(logits_plain))
+    held_same = bool(torch.equal(logits_held, logits))
+    agree_half = float((logits_half.argmax(-1) == logits_plain.argmax(-1))
+                       .float().mean())
+    agree_plain = float((logits.argmax(-1) == logits_plain.argmax(-1))
+                        .float().mean())
+    agree_step = float((logits.argmax(-1) == consist.argmax(-1))
+                       .float().mean())
+    print(f"[mamba2 check] init {init_s:.2f} s for {n_params} parameters; "
+          f"logits finite {finite}; prefill launches {n_prefill}, decode "
+          f"step launches {n_decode}; serve's first tokens reproduced "
+          f"{same_first}; K5 vs the plain scan on each layer's inputs: "
+          f"at most {max(layer_ratios):.3g} of SSD_TOL over "
+          f"{len(layer_ratios)} layers; K5 vs plain-scan prefill: max abs "
+          f"diff {float(d_plain.max()):.4g}, mean "
+          f"{float(d_plain.mean()):.4g}, {plain_ratio:.3g} of atol+rtol, "
+          f"argmax agree {agree_plain:.3f} (|logit| max "
+          f"{float(logits[:, live].abs().max()):.3g}); plain scan at chunk "
+          f"{cfg.ssm_chunk // 2} vs {cfg.ssm_chunk}: max abs diff "
+          f"{float(d_half.max()):.4g}, mean {float(d_half.mean()):.4g}, "
+          f"argmax agree {agree_half:.3f}; "
+          f"prefill({P}) vs prefill({P - 1}) + decode: max abs diff "
+          f"{float(d_step.max()):.4g}, {step_ratio:.3g} of atol+rtol, "
+          f"argmax agree {agree_step:.3f}")
+    if not finite:
+        fail("non-finite logits in mamba2 serving")
+    if n_prefill != cfg.n_layers or n_decode != 0:
+        fail(f"ssd_scan launched {n_prefill} times in a prefill and "
+             f"{n_decode} in a decode step, expected {cfg.n_layers} and 0")
+    if not same_first:
+        fail("the same weights and prompts did not reproduce serve's first "
+             "tokens")
+    if len(layer_ratios) != cfg.n_layers or not max(layer_ratios) <= 1.0:
+        fail(f"K5 disagrees with the plain scan on a layer's inputs: "
+             f"{max(layer_ratios)} of SSD_TOL")
+    if not held_same:
+        fail("a prefill through K5 held against the plain scan gave other "
+             "logits than the plain K5 prefill")
+    if not plain_ok:
+        fail(f"the K5 and plain-scan prefills differ by "
+             f"{float(d_plain.max())} (limit {SSM_E2E_ATOL}), or their "
+             f"greedy tokens are no near-tie")
+    if not step_ok:
+        fail("a decode step disagrees with the longer prefill")
+
+    def one_prefill():
+        with torch.inference_mode():
+            model.prefill(params, batch, model.init_cache(B, P + G))
+
+    def one_decode():
+        with torch.inference_mode():
+            model.decode_step(params, cache, tok)
+
+    prof = {"prefill": profile_round(torch, one_prefill,
+                                     ("ssd_scan_kernel",)),
+            "decode_step": profile_round(torch, one_decode,
+                                         ("ssd_scan_kernel",))}
+    for name, pr in prof.items():
+        print(f"[mamba2 profile] {name}: " + json.dumps(pr))
+    return dict(info=info, launches=launches, profile=prof, init_s=init_s,
+                layer_tol_ratio=max(layer_ratios),
+                max_diff_plain=float(d_plain.max()),
+                max_diff_half=float(d_half.max()),
+                max_diff_step=float(d_step.max()))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -979,6 +1287,10 @@ def main():
     k4 = phase_attention(torch)
     # --- 11. LM serving: smollm-135m prefill and greedy decode ----------------
     sv = phase_serve(torch)
+    # --- 12. SSD chunked-scan kernel parity and times --------------------------
+    k5 = phase_ssd(torch)
+    # --- 13. mamba2-1.3b serving: prefill through K5, greedy decode ------------
+    mb = phase_mamba2(torch)
 
     kernels = []
     for name, line, E in (("sim_interval", 54, 32), ("sim_step", 24, 16384)):
@@ -1034,6 +1346,23 @@ def main():
     })
     for name, r in k4.items():
         if name != "smollm_bf16":
+            kernels[-1][f"at_{name}"] = r
+    row = k5["mamba2_bf16"]
+    kernels.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:27",
+        "launches": mb["launches"]["ssd_scan"],
+        "max_abs_err": max(r["max_abs_err"] for r in k5.values()),
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None,
+        **{k: row[k] for k in ("b", "s", "h", "p", "g", "n", "chunk",
+                               "dtype", "device_ms", "max_abs_err_state",
+                               "bound_terms")},
+    })
+    for name, r in k5.items():
+        if name != "mamba2_bf16":
             kernels[-1][f"at_{name}"] = r
     print(json.dumps({"kernels": kernels}))
     print(card)

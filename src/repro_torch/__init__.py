@@ -15,7 +15,10 @@ it and nothing of JAX. Layers ported so far:
                            health check reads
   repro_torch.transfer   — the real 3-stage transfer engine (a copy)
   repro_torch.checkpoint — atomic, sha256-verified checkpoints of NumPy state
-  repro_torch.nn         — the layers the networks use (linear, layernorm)
+  repro_torch.nn         — the layers the networks and language models use
+                           (linear, norms, attention, the Mamba2 block)
+  repro_torch.models     — the dense decoder and ssm (mamba2) language
+                           models; repro_torch.launch serves them
   repro_torch.optim      — AdamW with the reference's formulas
   repro_torch.kernels    — hand-written Hopper kernels (CUDA C++ in csrc/)
   repro_torch.convert    — parameters and optimizer state to and from the

@@ -6,6 +6,7 @@ families still to port are listed.
 
 Sources ([verified-tier] per assignment):
   smollm-135m            hf:HuggingFaceTB/SmolLM-135M
+  mamba2-1.3b            arXiv:2405.21060
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import importlib
 
 ARCHS = [
     "smollm-135m",
+    "mamba2-1.3b",
 ]
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_") for a in ARCHS}

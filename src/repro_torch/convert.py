@@ -25,6 +25,7 @@ from torch import nn
 from repro_torch.core import networks as nets
 from repro_torch.device import resolve_device
 from repro_torch.models.decoder import DecoderLM
+from repro_torch.models.ssm import SSMLM
 
 
 def flatten_tree(tree, prefix=""):
@@ -113,11 +114,14 @@ def adamw_state_to_jax(opt):
             "step": np.asarray(opt["step"].cpu().numpy(), np.int32)}
 
 
-def lm_params_from_jax(cfg, tree, *, device=None) -> DecoderLM:
-    """The JAX package's decoder params (nested dict of NumPy arrays, the
-    layer stack with its leading L axis) -> the port's ``DecoderLM`` on
-    ``device`` (None: the CUDA device). bf16 leaves become bf16 tensors,
-    float32 leaves float32 ones."""
+_LM_MODULES = {"dense": DecoderLM, "ssm": SSMLM}
+
+
+def lm_params_from_jax(cfg, tree, *, device=None) -> DecoderLM | SSMLM:
+    """The JAX package's decoder or ssm params (nested dict of NumPy arrays,
+    the layer stack with its leading L axis) -> the port's ``DecoderLM`` or
+    ``SSMLM`` (by ``cfg.family``) on ``device`` (None: the CUDA device).
+    bf16 leaves become bf16 tensors, float32 leaves float32 ones."""
     state = {}
     for name, leaf in flatten_tree(tree).items():
         bf16 = np.asarray(leaf).dtype.name == "bfloat16"
@@ -130,15 +134,16 @@ def lm_params_from_jax(cfg, tree, *, device=None) -> DecoderLM:
         else:
             state[name] = t
     with torch.device("meta"):   # the structure only; no weights drawn
-        model = DecoderLM(cfg)
+        model = _LM_MODULES[cfg.family](cfg)
     model.load_state_dict(state, strict=True, assign=True)
     return model.to(resolve_device(device))
 
 
-def lm_params_to_jax(model: DecoderLM):
-    """The port's ``DecoderLM`` -> the JAX package's nested dict, the layers
-    stacked on a leading L axis, as float32 NumPy arrays (cast bf16 leaves
-    back with ``jnp.asarray(x, jnp.bfloat16)``; the values are exact)."""
+def lm_params_to_jax(model: DecoderLM | SSMLM):
+    """The port's ``DecoderLM`` or ``SSMLM`` -> the JAX package's nested
+    dict, the layers stacked on a leading L axis, as float32 NumPy arrays
+    (cast bf16 leaves back with ``jnp.asarray(x, jnp.bfloat16)``; float32
+    leaves stay float32; the values are exact)."""
     flat, layers = {}, {}
     for name, p in model.named_parameters():
         arr = p.detach().to(torch.float32).cpu().numpy()

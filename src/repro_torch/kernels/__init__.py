@@ -7,6 +7,9 @@
   flash_attention/
               causal flash attention, the prefill of every attention layer
               (replaces repro/kernels/flash_attention's Pallas kernel)
+  ssd_scan/   the Mamba2 SSD chunked scan, the prefill of every ssm layer,
+              with the final state (replaces repro/kernels/ssd_scan's
+              Pallas kernel)
 
 Each kernel ships a CUDA C++ source under ``repro_torch/csrc/``, kernel.py
 (the ctypes binding and launch), ops.py (the checked wrapper with its

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("sim_step", "contention", "flash_attention")
+SOURCES = ("sim_step", "contention", "flash_attention", "ssd_scan")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}   # name -> nvcc's output (ptxas -v report)

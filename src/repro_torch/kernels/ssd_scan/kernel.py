@@ -1,0 +1,59 @@
+"""ctypes binding of ``csrc/ssd_scan.cu``: one launch of the SSD chunked
+scan on PyTorch's current stream.
+
+The caller (``ops.py``) has checked devices, dtypes, shapes, strides and
+alignment; this module allocates y and, when asked, the final state,
+passes raw device pointers and strides, and raises if the launch was
+refused."""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+CHUNK = 128          # the chunk length the kernel is built for
+HEAD_DIM = 64        # the head dim (p) the kernel is built for
+STATE_TILE = 32      # the state dim (n) is walked in tiles of this many
+STATE_MAX = 256      # the largest state dim that fits the shared memory
+VEC = 4              # elements of one vector load of x, B or C
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_fn = None
+
+
+def _entry():
+    global _fn
+    if _fn is None:
+        fn = build.load("ssd_scan").ssd_scan_launch
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 6
+                       + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def launch(x, dt, A, B, C, *, return_state):
+    """Tensors as ``ops.ssd_scan`` documents them, on one card: x, B and C
+    with unit stride in their last two axes, dt and A contiguous float32.
+    Returns (y (b, s, h, p) in x's dtype, state (b, h, p, n) float32 or
+    None)."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    fn = _entry()
+    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+    state = (torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+             if return_state else None)
+    with torch.cuda.device(x.device):  # launch on the tensors' card
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                 C.data_ptr(), y.data_ptr(),
+                 state.data_ptr() if return_state else None,
+                 b, s, h, g, n, x.stride(0), x.stride(1), B.stride(0),
+                 B.stride(1), C.stride(0), C.stride(1), _DTYPES[x.dtype],
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
+    return y, state

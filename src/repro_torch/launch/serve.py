@@ -1,9 +1,13 @@
 """Batched serving (port of ``repro.launch.serve``): prefill a batch
 of requests, then step the greedy decode loop, on the CUDA device. The
 command line serves with ``attn_backend="pallas"``, the port's
-flash-attention kernel on the prefill of every layer.
+flash-attention kernel on the prefill of every attention layer; the ssm
+family (mamba2-1.3b) runs the SSD scan kernel on every layer's prefill
+whatever the backend.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+      --batch 8 --prompt-len 1024 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
       --batch 8 --prompt-len 1024 --gen 32
 """
 

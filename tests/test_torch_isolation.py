@@ -33,6 +33,7 @@ COPIES = {"transfer/engine.py": "transfer/engine.py",
           "core/marlin.py": "core/marlin.py",
           "models/config.py": "models/config.py",
           "configs/smollm_135m.py": "configs/smollm_135m.py",
+          "configs/mamba2_1_3b.py": "configs/mamba2_1_3b.py",
           "configs/registry.py": "configs/registry.py"}
 # narrowed copies: the top-level names whose definitions may differ from
 # the original's (checked by test_registry_narrows_the_reference_registry)

@@ -133,7 +133,7 @@ def test_unported_archs_and_families_raise():
     with pytest.raises(KeyError, match="ROADMAP.md"):
         get_config("mixtral-8x22b")
     cfg = get_smoke_config(ARCH)
-    for family in ("moe", "ssm", "hybrid", "encdec", "vlm"):
+    for family in ("moe", "hybrid", "encdec", "vlm"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             get_model(cfg.replace(family=family))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

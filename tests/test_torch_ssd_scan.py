@@ -1,0 +1,204 @@
+"""The port's SSD chunked scan (K5, ``kernels/ssd_scan``) against the JAX
+package.
+
+On the CPU the wrapper runs its plain version (``ref.py``, which is
+``nn.ssd.ssd_chunked``); its y is held against the reference's Pallas
+kernel in interpret mode (as ``tests/test_kernels.py`` runs it) over the
+reference's own shape grid, and its final state against the reference's
+``ssd_chunked``, which the prefill reads it from. Tolerances are the
+reference's own (``tests/test_kernels.py``: atol = rtol = 1e-4 in float32,
+5e-2 in bf16): the same float32 math summed in another order, and in bf16
+y rounded once from float32 in both. Ragged lengths (S not a multiple of
+the chunk, and S below one chunk) are held against ``ssd_chunked``, which
+pads with dt = 0; the Pallas kernel asserts S % chunk == 0. The CUDA
+kernel is compared with the plain version in the ``cuda``-marked tests,
+which need a card."""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+# the suite runs several pytest workers on the same cores: one torch thread
+# each keeps them from oversubscribing the CPU
+torch.set_num_threads(1)
+
+from repro.kernels.ssd_scan.ops import ssd_scan as jax_ssd_scan
+from repro.nn.ssd import ssd_chunked as jax_ssd_chunked
+
+from repro_torch.kernels.ssd_scan import ops
+from repro_torch.kernels.ssd_scan.ref import ssd_reference
+
+TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+
+SSD_CASES = [
+    # b, s, h, p, g, n, chunk (the reference's grid, tests/test_kernels.py)
+    (2, 64, 4, 16, 1, 32, 16),
+    (1, 128, 8, 8, 2, 16, 32),
+    (2, 96, 2, 32, 1, 8, 48),
+    (1, 64, 4, 64, 4, 64, 64),  # one chunk (no recurrence)
+]
+RAGGED_CASES = [
+    (2, 100, 4, 16, 1, 32, 32),   # S not a multiple of the chunk
+    (1, 20, 4, 16, 2, 16, 32),    # S below one chunk
+]
+
+
+def operands(b, s, h, p, g, n, seed):
+    """The reference test's distributions: x, B, C standard normal, dt in
+    [0.001, 0.1], A in [-2, -0.5]."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 1, (b, s, h, p)).astype(np.float32),
+            rng.uniform(0.001, 0.1, (b, s, h)).astype(np.float32),
+            -rng.uniform(0.5, 2, (h,)).astype(np.float32),
+            rng.normal(0, 1, (b, s, g, n)).astype(np.float32),
+            rng.normal(0, 1, (b, s, g, n)).astype(np.float32))
+
+
+def _both(arrays, dtype):
+    """(jax, torch) operands: x, B and C in ``dtype``, dt and A float32
+    (bf16 rounding to nearest even in both)."""
+    x, dt, A, B, C = arrays
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    j = (jnp.asarray(x, jd), jnp.asarray(dt), jnp.asarray(A),
+         jnp.asarray(B, jd), jnp.asarray(C, jd))
+    t = (torch.from_numpy(x).to(td), torch.from_numpy(dt),
+         torch.from_numpy(A), torch.from_numpy(B).to(td),
+         torch.from_numpy(C).to(td))
+    return j, t
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,Q", SSD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_interpret_kernel_and_oracle_state(b, s, h, p, g, n, Q,
+                                                         dtype):
+    j, t = _both(operands(b, s, h, p, g, n, seed=s * 7 + p), dtype)
+    want_y, _ = jax_ssd_scan(*j, chunk=Q, interpret=True)
+    _, want_state = jax_ssd_chunked(*j, chunk=Q)
+    before = ops.ssd_scan.launches
+    y, state = ops.ssd_scan(*t, chunk=Q, return_state=True)
+    assert ops.ssd_scan.launches == before  # the CPU launches nothing
+    assert y.dtype == t[0].dtype and y.shape == (b, s, h, p)
+    assert state.dtype == torch.float32 and state.shape == (b, h, p, n)
+    _close(y, want_y, dtype)
+    _close(state, want_state, dtype)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,Q", RAGGED_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ragged_lengths_match_the_padded_oracle(b, s, h, p, g, n, Q, dtype):
+    j, t = _both(operands(b, s, h, p, g, n, seed=s + n), dtype)
+    want_y, want_state = jax_ssd_chunked(*j, chunk=Q)
+    y, state = ops.ssd_scan(*t, chunk=Q, return_state=True)
+    assert y.shape == (b, s, h, p)
+    _close(y, want_y, dtype)
+    _close(state, want_state, dtype)
+
+
+def test_state_is_returned_only_when_asked():
+    _, t = _both(operands(1, 32, 2, 8, 1, 8, seed=0), "float32")
+    y, state = ops.ssd_scan(*t, chunk=16)
+    assert state is None
+    y2, _ = ops.ssd_scan(*t, chunk=16, return_state=True)
+    torch.testing.assert_close(y, y2, rtol=0, atol=0)
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    _, (x, dt, A, B, C) = _both(operands(1, 16, 4, 8, 2, 8, seed=1),
+                                "float32")
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x[0], dt, A, B, C)                   # x not 4-d
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x, dt[:, :8], A, B, C)               # dt's length
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x, dt, A[:3], B, C)                  # A's heads
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x, dt, A, B, C[..., :4])             # C unlike B
+    with pytest.raises(ValueError):                       # 3 groups, 4 heads
+        ops.ssd_scan(x, dt, A, B[:, :, :1].repeat(1, 1, 3, 1),
+                     C[:, :, :1].repeat(1, 1, 3, 1))
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x[:, :0], dt[:, :0], A, B[:, :0], C[:, :0])  # s = 0
+    with pytest.raises(TypeError):
+        ops.ssd_scan(x, dt, A, B.to(torch.bfloat16), C)   # mixed dtypes
+    with pytest.raises(TypeError):
+        ops.ssd_scan(x.double(), dt, A, B.double(), C.double())
+    with pytest.raises(TypeError):
+        ops.ssd_scan(x, dt.to(torch.bfloat16), A, B, C)   # dt not float32
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x, dt, A, B, C, chunk=0)
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x.to("meta"), dt.to("meta"), A.to("meta"),
+                     B.to("meta"), C.to("meta"))          # not CUDA or CPU
+
+
+# the main path's widths (p = 64, chunk 128; n = 128 and zamba2's 64) at
+# small b and s: exact chunks, a ragged S, S below a chunk, grouped B/C
+CUDA_SHAPES = [dict(b=2, s=256, h=4, g=1, n=128),
+               dict(b=1, s=300, h=4, g=1, n=64),
+               dict(b=2, s=50, h=2, g=1, n=128),
+               dict(b=1, s=384, h=8, g=4, n=128)]
+
+
+def _cuda_operands(shape, dtype):
+    rng_args = (shape["b"], shape["s"], shape["h"], 64, shape["g"],
+                shape["n"])
+    _, t = _both(operands(*rng_args, seed=shape["s"]), dtype)
+    return [a.cuda() for a in t]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUDA_SHAPES,
+                         ids=[f"s{s['s']}h{s['h']}g{s['g']}n{s['n']}"
+                              for s in CUDA_SHAPES])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_matches_plain_version(shape, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("cuda: needs a CUDA card and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _cuda_operands(shape, dtype)
+    before = ops.ssd_scan.launches
+    y, state = ops.ssd_scan(*args, chunk=128, return_state=True)
+    torch.cuda.synchronize()
+    assert ops.ssd_scan.launches == before + 1
+    want_y, want_state = ssd_reference(*args, chunk=128)
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    torch.testing.assert_close(state, want_state, rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_takes_strided_views_and_refuses_other_widths():
+    """The model passes x, B and C as views into the conv's output; the
+    kernel reads them in place. It refuses head dims, chunks and state
+    dims it is not built for."""
+    if not torch.cuda.is_available():
+        pytest.skip("cuda: needs a CUDA card and nvcc")
+    b, s, h, g, n = 2, 200, 4, 1, 128
+    x, dt, A, B, C = _cuda_operands(dict(b=b, s=s, h=h, g=g, n=n),
+                                    "bfloat16")
+    xbc = torch.cat([x.reshape(b, s, -1), B.reshape(b, s, -1),
+                     C.reshape(b, s, -1)], dim=-1)
+    xv = xbc[..., :h * 64].reshape(b, s, h, 64)
+    Bv = xbc[..., h * 64:h * 64 + g * n].reshape(b, s, g, n)
+    Cv = xbc[..., h * 64 + g * n:].reshape(b, s, g, n)
+    assert not xv.is_contiguous()
+    y, state = ops.ssd_scan(xv, dt, A, Bv, Cv, return_state=True)
+    want_y, want_state = ssd_reference(x, dt, A, B, C)
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=5e-2,
+                               atol=5e-2)
+    torch.testing.assert_close(state, want_state, rtol=5e-2, atol=5e-2)
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x[..., :32].contiguous(), dt, A, B, C)   # p = 32
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x, dt, A, B, C, chunk=64)
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x, dt, A, B[..., :48].contiguous(),
+                     C[..., :48].contiguous())                # n = 48
