@@ -15,6 +15,8 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_DIMS = (64, 128)      # the head dims the kernel is instantiated for
+# the dtype picks the kernel's route: 0 the scalar float32 kernel (the
+# first design), 1 the bf16 tensor-core kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 

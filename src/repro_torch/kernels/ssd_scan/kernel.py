@@ -19,6 +19,8 @@ HEAD_DIM = 64        # the head dim (p) the kernel is built for
 STATE_TILE = 32      # the state dim (n) is walked in tiles of this many
 STATE_MAX = 256      # the largest state dim that fits the shared memory
 VEC = 4              # elements of one vector load of x, B or C
+# the dtype picks the kernel's route: 0 the scalar float32 kernel (the
+# first design), 1 the bf16 tensor-core kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 

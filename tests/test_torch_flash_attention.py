@@ -82,11 +82,16 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         ops.flash_attention(q, k, v, window=0)
 
 
-# the main path's shapes at small S, both dtypes, a window, D = 128
+# the main path's shapes at small S, both dtypes (each its own route), a
+# window, D = 128, ragged S with each, and a window narrower than a warp's
+# 16 rows
 CUDA_SHAPES = [dict(B=2, S=256, Hq=9, Hkv=3, D=64, window=None),
                dict(B=1, S=200, Hq=9, Hkv=3, D=64, window=None),
                dict(B=1, S=300, Hq=4, Hkv=2, D=64, window=70),
-               dict(B=1, S=192, Hq=8, Hkv=2, D=128, window=None)]
+               dict(B=1, S=192, Hq=8, Hkv=2, D=128, window=None),
+               dict(B=1, S=1000, Hq=9, Hkv=3, D=64, window=None),
+               dict(B=1, S=700, Hq=4, Hkv=1, D=128, window=100),
+               dict(B=2, S=130, Hq=2, Hkv=2, D=64, window=5)]
 
 
 @pytest.mark.cuda

@@ -139,11 +139,15 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
 
 
 # the main path's widths (p = 64, chunk 128; n = 128 and zamba2's 64) at
-# small b and s: exact chunks, a ragged S, S below a chunk, grouped B/C
+# small b and s: exact chunks, a ragged S, S below a chunk, grouped B/C, and
+# the state dims at the ends of what the kernel takes (32, 96, 256)
 CUDA_SHAPES = [dict(b=2, s=256, h=4, g=1, n=128),
                dict(b=1, s=300, h=4, g=1, n=64),
                dict(b=2, s=50, h=2, g=1, n=128),
-               dict(b=1, s=384, h=8, g=4, n=128)]
+               dict(b=1, s=384, h=8, g=4, n=128),
+               dict(b=1, s=256, h=2, g=1, n=32),
+               dict(b=1, s=200, h=2, g=1, n=96),
+               dict(b=1, s=384, h=4, g=2, n=256)]
 
 
 def _cuda_operands(shape, dtype):
@@ -202,3 +206,30 @@ def test_cuda_kernel_takes_strided_views_and_refuses_other_widths():
     with pytest.raises(ValueError):
         ops.ssd_scan(x, dt, A, B[..., :48].contiguous(),
                      C[..., :48].contiguous())                # n = 48
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_takes_views_on_8_byte_boundaries():
+    """Sequence strides that are multiples of 4 elements but not of 8 put
+    bf16 rows on 8-byte boundaries only: the kernel copies them 8 bytes at
+    a time."""
+    if not torch.cuda.is_available():
+        pytest.skip("cuda: needs a CUDA card and nvcc")
+    b, s, h, g, n = 2, 300, 4, 1, 64
+    x, dt, A, B, C = _cuda_operands(dict(b=b, s=s, h=h, g=g, n=n),
+                                    "bfloat16")
+    pad = torch.zeros((b, s, 4), dtype=x.dtype, device=x.device)
+    xbc = torch.cat([x.reshape(b, s, -1), B.reshape(b, s, -1),
+                     C.reshape(b, s, -1), pad], dim=-1)
+    assert xbc.stride(1) % 8 == 4
+    xv = xbc[..., :h * 64].reshape(b, s, h, 64)
+    Bv = xbc[..., h * 64:h * 64 + g * n].reshape(b, s, g, n)
+    Cv = xbc[..., h * 64 + g * n:h * 64 + 2 * g * n].reshape(b, s, g, n)
+    before = ops.ssd_scan.launches
+    y, state = ops.ssd_scan(xv, dt, A, Bv, Cv, return_state=True)
+    torch.cuda.synchronize()
+    assert ops.ssd_scan.launches == before + 1
+    want_y, want_state = ssd_reference(x, dt, A, B, C)
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=5e-2,
+                               atol=5e-2)
+    torch.testing.assert_close(state, want_state, rtol=5e-2, atol=5e-2)

@@ -1,0 +1,256 @@
+"""The roundings of the bf16 tensor-core routes of K4 (flash attention) and
+K5 (SSD chunked scan), emulated in plain PyTorch and held against the JAX
+package at the port's unchanged tolerances.
+
+The CUDA kernels cannot run here, so these emulations show on the CPU that
+the bf16 operands each route feeds its tensor cores fit the limits the
+kernels are held to on the card (``chip_smoke.py``'s ``FA_TOL`` and
+``SSD_TOL``, the reference's own, ``tests/test_kernels.py``):
+
+- K4 rounds P to bf16 for its product with V, per kv tile of 64 keys
+  against that tile's running max, and sums l from the same rounded P; the
+  scores, l and the accumulator stay float32. Held at 2e-2 absolute.
+- K5 rounds three operands to bf16: (C B^T .* L) * dt (dt folded into the
+  score), x * exp(dA_cum[Q-1] - dA_cum) * dt for the state update, and the
+  bf16 copy of h that C h^T reads; products of bf16 inputs are exact in
+  float32 and every sum is float32. Held at 5e-2 as atol and rtol on y and
+  on the final state.
+
+Each emulation is held against the reference's Pallas kernel in interpret
+mode (as ``tests/test_kernels.py`` runs it) or, where that kernel does not
+take the shape (a ragged S) and for K5's final state, against the
+reference's oracle ``ssd_chunked``; and against the port's plain version,
+which the kernels are held to on the card. The emulations are test
+helpers: no path of the port runs them."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+# the suite runs several pytest workers on the same cores: one torch thread
+# each keeps them from oversubscribing the CPU
+torch.set_num_threads(1)
+
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+from repro.kernels.ssd_scan.ops import ssd_scan as jax_ssd_scan
+from repro.nn.ssd import ssd_chunked as jax_ssd_chunked
+
+from repro_torch.kernels.flash_attention.ref import attention_reference
+from repro_torch.kernels.ssd_scan.ref import ssd_reference
+
+FA_TOL = 2e-2          # chip_smoke.py FA_TOL["bfloat16"]
+SSD_TOL = 5e-2         # chip_smoke.py SSD_TOL["bfloat16"]
+NEG_INF = -1e30
+BF16 = torch.bfloat16
+F32 = torch.float32
+
+
+def fa_tc_emulation(q, k, v, *, window=None, tile=64):
+    """K4's bf16 route: float32 scores of bf16 inputs, scaled after the dot,
+    the -1e30 masks, an online softmax over kv tiles of ``tile`` keys with
+    P rounded to bf16 against each tile's running max and l summed from the
+    rounded P, and the output rounded to bf16 once."""
+    S, Hq, D = q.shape[1], q.shape[2], q.shape[3]
+    Skv, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    kf = torch.repeat_interleave(k.to(F32), group, dim=2)
+    vf = torch.repeat_interleave(v.to(F32), group, dim=2)
+    s_all = torch.einsum("bqhd,bkhd->bhqk", q.to(F32), kf) * (1.0 / math.sqrt(D))
+    qp = torch.arange(S)[:, None]
+    kp = torch.arange(Skv)[None, :]
+    live = qp >= kp
+    if window is not None:
+        live = live & (qp - kp < window)
+    s_all = torch.where(live, s_all, NEG_INF)
+    m = torch.full(s_all.shape[:-1], NEG_INF)
+    l = torch.zeros(s_all.shape[:-1])
+    acc = torch.zeros(s_all.shape[:-1] + (D,))
+    for k0 in range(0, Skv, tile):
+        s = s_all[..., k0:k0 + tile]
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        dead = (m_new <= NEG_INF / 2)[..., None]
+        p = torch.where(dead, 0.0, torch.exp(s - m_new[..., None]))
+        p = p.to(BF16).to(F32)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p, vf[:, k0:k0 + tile])
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def ssd_tc_emulation(x, dt, A, B, C, *, chunk=128):
+    """K5's bf16 route, chunk by chunk with h carried in float32: y =
+    bf16((C B^T .* L) * dt) x + (C bf16(h)^T) * exp(dA_cum), h <- h *
+    exp(dA_cum[Q-1]) + bf16(x * exp(dA_cum[Q-1] - dA_cum) * dt)^T B, every
+    product of bf16 operands summed in float32; y rounded to bf16 once.
+    A ragged S is padded with dt = 0, as the kernel reads zeros past S."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    pad = (-s) % chunk
+    xf = torch.nn.functional.pad(x.to(F32), (0, 0, 0, 0, 0, pad))
+    dtf = torch.nn.functional.pad(dt.to(F32), (0, 0, 0, pad))
+    Bf = torch.repeat_interleave(
+        torch.nn.functional.pad(B.to(F32), (0, 0, 0, 0, 0, pad)), rep, dim=2)
+    Cf = torch.repeat_interleave(
+        torch.nn.functional.pad(C.to(F32), (0, 0, 0, 0, 0, pad)), rep, dim=2)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    state = torch.zeros((b, h, p, n))
+    ys = []
+    for t0 in range(0, s + pad, chunk):
+        X = xf[:, t0:t0 + chunk]                       # (b, Q, h, p)
+        d = dtf[:, t0:t0 + chunk]                      # (b, Q, h)
+        Bk, Ck = Bf[:, t0:t0 + chunk], Cf[:, t0:t0 + chunk]
+        cum = torch.cumsum(d * A.to(F32), dim=1)       # (b, Q, h)
+        cum_h = cum.permute(0, 2, 1)                   # (b, h, Q)
+        seg = cum_h[..., :, None] - cum_h[..., None, :]
+        scores = torch.einsum("bihn,bjhn->bhij", Ck, Bk)
+        gated = torch.where(tri, scores * torch.exp(seg)
+                            * d.permute(0, 2, 1)[:, :, None, :], 0.0)
+        y_diag = torch.einsum("bhij,bjhp->bihp", gated.to(BF16).to(F32), X)
+        y_off = torch.einsum("bihn,bhpn->bihp", Ck,
+                             state.to(BF16).to(F32)) * torch.exp(cum)[..., None]
+        ys.append(y_off + y_diag)
+        last = cum[:, -1]                              # (b, h)
+        w = torch.exp(last[:, None] - cum) * d         # (b, Q, h)
+        xw = (X * w[..., None]).to(BF16).to(F32)
+        state = (state * torch.exp(last)[..., None, None]
+                 + torch.einsum("bthp,bthn->bhpn", xw, Bk))
+    y = torch.cat(ys, dim=1)[:, :s]
+    return y.to(x.dtype), state
+
+
+FA_CASES = [
+    # B, S, Hq, Hkv, D, window, blk (the JAX kernel's block)
+    (2, 128, 4, 2, 64, None, 64),
+    (1, 200, 9, 3, 64, None, 64),     # smollm's heads, ragged S
+    (1, 150, 4, 2, 64, 40, 64),       # window and ragged S
+    (1, 300, 4, 2, 64, 5, 64),        # a window narrower than a warp's rows
+    (1, 130, 2, 1, 128, None, 64),    # D = 128, ragged S
+    (1, 256, 4, 1, 128, 100, 64),     # D = 128, window
+]
+
+
+def fa_operands(B, S, Hq, Hkv, D, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 1, (B, S, Hq, D)).astype(np.float32),
+            rng.normal(0, 1, (B, S, Hkv, D)).astype(np.float32),
+            rng.normal(0, 1, (B, S, Hkv, D)).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,win,blk", FA_CASES)
+def test_fa_bf16_rounding_fits_the_tolerance(B, S, Hq, Hkv, D, win, blk):
+    q, k, v = fa_operands(B, S, Hq, Hkv, D, seed=S * 3 + D)
+    want = jax_flash(jnp.asarray(q, jnp.bfloat16),
+                     jnp.asarray(k, jnp.bfloat16),
+                     jnp.asarray(v, jnp.bfloat16), causal=True, window=win,
+                     blk_q=blk, blk_k=blk, interpret=True)
+    tq, tk, tv = (torch.from_numpy(a).to(BF16) for a in (q, k, v))
+    got = fa_tc_emulation(tq, tk, tv, window=win)
+    assert got.dtype == BF16 and got.shape == (B, S, Hq, D)
+    np.testing.assert_allclose(got.to(F32).numpy(),
+                               np.asarray(want, np.float32), rtol=0,
+                               atol=FA_TOL)
+    plain = attention_reference(tq, tk, tv, window=win)
+    torch.testing.assert_close(got.to(F32), plain.to(F32), rtol=0,
+                               atol=FA_TOL)
+
+
+def test_fa_emulation_rounds_p_and_sums_l_from_it():
+    """The emulation is not the float32 function: rounding P moves the
+    output by more than float32 noise, and within the tolerance."""
+    q, k, v = (torch.from_numpy(a).to(BF16)
+               for a in fa_operands(1, 128, 2, 1, 64, seed=5))
+    got = fa_tc_emulation(q, k, v).to(F32)
+    plain = attention_reference(q, k, v).to(F32)
+    diff = float((got - plain).abs().max())
+    assert 0.0 < diff <= FA_TOL
+
+
+SSD_CASES = [
+    # b, s, h, p, g, n (chunk 128, the kernel's)
+    (1, 256, 2, 64, 1, 128),     # mamba2's widths
+    (2, 384, 2, 64, 1, 64),      # zamba2's state
+    (1, 256, 4, 64, 2, 128),     # grouped B/C
+    (1, 256, 2, 64, 1, 256),     # the largest state the kernel takes
+]
+SSD_RAGGED_CASES = [
+    (1, 300, 2, 64, 1, 128),     # S not a multiple of the chunk
+    (2, 50, 2, 64, 1, 32),       # S below one chunk
+]
+
+
+def ssd_operands(b, s, h, p, g, n, seed):
+    """The reference test's distributions: x, B, C standard normal, dt in
+    [0.001, 0.1], A in [-2, -0.5]."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 1, (b, s, h, p)).astype(np.float32),
+            rng.uniform(0.001, 0.1, (b, s, h)).astype(np.float32),
+            -rng.uniform(0.5, 2, (h,)).astype(np.float32),
+            rng.normal(0, 1, (b, s, g, n)).astype(np.float32),
+            rng.normal(0, 1, (b, s, g, n)).astype(np.float32))
+
+
+def _ssd_both(arrays):
+    x, dt, A, B, C = arrays
+    j = (jnp.asarray(x, jnp.bfloat16), jnp.asarray(dt), jnp.asarray(A),
+         jnp.asarray(B, jnp.bfloat16), jnp.asarray(C, jnp.bfloat16))
+    t = (torch.from_numpy(x).to(BF16), torch.from_numpy(dt),
+         torch.from_numpy(A), torch.from_numpy(B).to(BF16),
+         torch.from_numpy(C).to(BF16))
+    return j, t
+
+
+def _ssd_close(got, want):
+    np.testing.assert_allclose(got.to(F32).numpy(),
+                               np.asarray(want, np.float32), rtol=SSD_TOL,
+                               atol=SSD_TOL)
+
+
+def _ssd_close_to_plain(t, y, state):
+    want_y, want_state = ssd_reference(*t, chunk=128)
+    torch.testing.assert_close(y.to(F32), want_y.to(F32), rtol=SSD_TOL,
+                               atol=SSD_TOL)
+    torch.testing.assert_close(state, want_state, rtol=SSD_TOL,
+                               atol=SSD_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n", SSD_CASES)
+def test_ssd_bf16_rounding_fits_the_tolerance(b, s, h, p, g, n):
+    j, t = _ssd_both(ssd_operands(b, s, h, p, g, n, seed=s + n + h))
+    want_y, _ = jax_ssd_scan(*j, chunk=128, interpret=True)
+    _, want_state = jax_ssd_chunked(*j, chunk=128)
+    y, state = ssd_tc_emulation(*t, chunk=128)
+    assert y.dtype == BF16 and y.shape == (b, s, h, p)
+    assert state.dtype == F32 and state.shape == (b, h, p, n)
+    _ssd_close(y, want_y)
+    _ssd_close(state, want_state)
+    _ssd_close_to_plain(t, y, state)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n", SSD_RAGGED_CASES)
+def test_ssd_bf16_rounding_fits_the_tolerance_ragged(b, s, h, p, g, n):
+    j, t = _ssd_both(ssd_operands(b, s, h, p, g, n, seed=s + n))
+    want_y, want_state = jax_ssd_chunked(*j, chunk=128)
+    y, state = ssd_tc_emulation(*t, chunk=128)
+    assert y.shape == (b, s, h, p)
+    _ssd_close(y, want_y)
+    _ssd_close(state, want_state)
+    _ssd_close_to_plain(t, y, state)
+
+
+def test_ssd_emulation_rounds_its_operands():
+    """The emulation is not the float32 function: its roundings move y and
+    the state by more than float32 noise, and within the tolerance."""
+    _, t = _ssd_both(ssd_operands(1, 256, 2, 64, 1, 64, seed=9))
+    y, state = ssd_tc_emulation(*t, chunk=128)
+    want_y, want_state = ssd_reference(*t, chunk=128)
+    d_state = float((state - want_state).abs().max())
+    assert 1e-5 < d_state <= SSD_TOL
+    assert float((y.to(F32) - want_y.to(F32)).abs().max()) <= SSD_TOL * (
+        1 + float(want_y.to(F32).abs().max()))
