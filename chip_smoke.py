@@ -12,11 +12,14 @@ port's entry points:
                 contention, flash_attention, ssd_scan), one nvcc each,
                 started together; the SASS of K4's and K5's bf16 kernels
                 must hold tensor-core instructions (HMMA/HGMMA) and
-                asynchronous copies (LDGSTS/UTMALDG)
-  3. parity     each kernel against its plain PyTorch version on the same
-                CUDA tensors, at the main path's shapes (1 env for the
-                probes, 32 for training) and at 16384 envs; kernel, plain
-                and bound times
+                asynchronous copies (LDGSTS/UTMALDG); every K1 and K3
+                instance's registers, shared memory and spills (ptxas),
+                and no spill in any of them
+  3. parity     the sim kernels (K1, K2) against their plain PyTorch
+                version on the same CUDA tensors, bitwise, at the main
+                path's shapes (1 env for the probes, 32 for training, 4096
+                for phase 6) and at 16384 envs; kernel, plain and bound
+                times
   4. main path  exploration on the simulator, PPO (quickstart's
                 configuration: 2000 episodes, 32 envs) on the card, then the
                 trained AutoMDTController steering a live threaded 3-stage
@@ -29,8 +32,11 @@ port's entry points:
   7. contention the contention kernel against its plain version at the
                 fleet's training shape (16 envs, 4 flows, objectives off
                 and on), the scale-out shapes (4096 flows dense, 256
-                compact) and a topology shape (3 links, 8 water-fill
-                rounds); kernel, device, plain and bound times
+                compact), a topology shape (3 links, 8 water-fill rounds),
+                2 links with 33 flows and 33 rounds, and 2100 flows on 4
+                links, more than a cluster of blocks holds on chip; the
+                same bits from two launches; kernel, device, plain and
+                bound times
   8. fleet      bench_fleet.py's configuration (4 flows, 16 envs, 1500
                 episodes, domain-randomized arrivals) trained on the card,
                 the shared policy and the static baseline scored on three
@@ -77,6 +83,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -267,6 +274,44 @@ def sass_counts(lib_path):
     return counts
 
 
+def ptxas_report(log):
+    """Per entry function of one nvcc build's ``-Xptxas -v`` output: its
+    registers, static shared memory and spill bytes, names demangled with
+    cu++filt where the toolkit has it."""
+    rows, cur, props = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1)
+            rows[cur] = dict(function=cur, registers=None, smem_bytes=0,
+                             spill_stores=0, spill_loads=0)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and props in rows:
+            rows[props]["spill_stores"] = int(m.group(1))
+            rows[props]["spill_loads"] = int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur in rows:
+            rows[cur]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            rows[cur]["smem_bytes"] = int(sm.group(1)) if sm else 0
+    from repro_torch.kernels import build
+    filt = os.path.join(os.path.dirname(build._nvcc()), "cu++filt")
+    if rows and os.path.exists(filt):
+        names = subprocess.run([filt], input="\n".join(rows), text=True,
+                               capture_output=True).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, name in zip(rows.values(), names):
+                r["function"] = name.replace("(anonymous namespace)::", "")
+    return list(rows.values())
+
+
 def profile_round(torch, run_round, kernels):
     """One episode batch (``run_round()``: rollout + updates): its wall
     time unprofiled, and under torch.profiler the device's kernel time,
@@ -365,6 +410,68 @@ def max_err(a, b):
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
 
+def phase_sim(torch):
+    """3. K1 (sim_interval) at the main path's env counts (1 for the
+    probes, 32 for training, 4096 for phase 6) and at 16384, and K2
+    (sim_step) at 16384, against the plain version: bitwise, with kernel
+    (CUDA events), device (profiler), plain and bound times. Returns (S,
+    {(name, E): row})."""
+    from repro_torch.kernels.sim_step import ops
+    from repro_torch.kernels.sim_step.ref import (sim_interval_reference,
+                                                  sim_step_reference)
+    S = 50
+    shapes = {}
+    for E in (1, 32, 4096, 16384):   # probes, training, phase 6, wide
+        bufs, rates_dt, cap, _ = sim_inputs(torch, E, S, seed=E)
+        kern = lambda: ops.sim_interval_batch(bufs, rates_dt, cap)
+        plain = lambda: sim_interval_reference(bufs, rates_dt, cap)
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        err = max_err(got, want)
+        if not err <= 1e-5:
+            fail(f"sim_interval E={E}: max abs err {err} > 1e-5")
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"sim_interval E={E}: not bitwise equal to the plain "
+                 f"version")
+        n_bytes = 4 * (E * 4 + E * S * 3 + E * 5)
+        b_ms, b_by, terms = bound_ms(n_bytes, SIM_OPS_PER_SUBSTEP * E * S,
+                                     SIM_CHAIN_OPS_PER_SUBSTEP * S)
+        shapes[("sim_interval", E)] = dict(
+            E=E, S=S, max_abs_err=err, ms=time_ms(torch, kern),
+            device_ms=device_ms(torch, kern, "sim_interval_kernel"),
+            plain_ms=time_ms(torch, plain, samples=5, inner=3, warmup=1),
+            bound_ms=b_ms, bound_by=b_by, bound_terms=terms,
+            library_ms=None)
+    E = 16384
+    bufs, _, cap, rate = sim_inputs(torch, E, S, seed=E + 1)
+    kern = lambda: ops.sim_step_batch(bufs, rate, cap, substeps=S)
+    plain = lambda: sim_step_reference(bufs, rate, cap, substeps=S)
+    got = kern()
+    torch.cuda.synchronize()
+    want = plain()
+    err = max_err(got, want)
+    if not err <= 1e-4:
+        fail(f"sim_step E={E}: max abs err {err} > 1e-4")
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail(f"sim_step E={E}: not bitwise equal to the plain version")
+    # rate * dt is off the chain: it does not wait on the buffers
+    b_ms, b_by, terms = bound_ms(4 * (E * 7 + E * 5),
+                                 (SIM_OPS_PER_SUBSTEP + 3) * E * S,
+                                 SIM_CHAIN_OPS_PER_SUBSTEP * S)
+    shapes[("sim_step", E)] = dict(
+        E=E, S=S, max_abs_err=err, ms=time_ms(torch, kern),
+        device_ms=device_ms(torch, kern, "sim_interval_kernel"),
+        plain_ms=time_ms(torch, plain, samples=5, inner=3, warmup=1),
+        bound_ms=b_ms, bound_by=b_by, bound_terms=terms, library_ms=None)
+    for (name, E), row in shapes.items():
+        print(f"[parity] {name} E={E} S={S}: max_abs_err={row['max_abs_err']:.3g} "
+              f"(bitwise) ms={row['ms']:.5f} device_ms={row['device_ms']} "
+              f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.6f} "
+              f"({row['bound_by']}; {json.dumps(row['bound_terms'])})")
+    return S, shapes
+
+
 def contention_bound(E, S, F, L, rounds, objectives):
     """K3's bound at one shape: every input read once and the output
     written once, the element-wise f32 operations, and the dependent chain
@@ -403,20 +510,26 @@ def contention_operands(torch, E, S, F, L, *, p_active, seed):
 # name: (E, S, F, L, rounds, objectives, share of flows active). The fleet's
 # training batch (bench_fleet.py: 16 envs, 4 flows, one link, no
 # water-fill), the scale-out fleet at F = 4096 dense (Poisson arrivals,
-# hold_frac 0.01: a few percent live) and its compact A = 256 slice, and a
-# topology-shaped solve (3 links, F water-fill rounds, with objectives).
+# hold_frac 0.01: a few percent live) and its compact A = 256 slice, a
+# topology-shaped solve (3 links, F water-fill rounds, with objectives),
+# 2 links with F = 33 rounds (the first flow count past a lane group), and
+# 2100 flows on 4 links, past the 2048 a cluster of 8 blocks holds on chip
+# there (each thread walks its flows, and the water-fill carries prefixes).
 CONTENTION_SHAPES = {
     "fleet": (16, 50, 4, 1, 0, False, 0.8),
     "fleet_objectives": (16, 50, 4, 1, 0, True, 0.8),
     "scale_dense": (1, 50, 4096, 1, 0, False, 0.05),
     "scale_compact": (1, 50, 256, 1, 0, False, 0.8),
     "topology": (4, 50, 8, 3, 8, True, 0.8),
+    "two_links": (4, 50, 33, 2, 33, True, 0.8),
+    "many_flows": (1, 50, 2100, 4, 8, True, 0.8),
 }
 
 
 def phase_contention(torch):
     """7. K3 against its plain version at every shape of CONTENTION_SHAPES,
-    with kernel (CUDA events), device (profiler), plain and bound times."""
+    bit-identical across two launches, with kernel (CUDA events), device
+    (profiler), plain and bound times."""
     from repro_torch.kernels.contention import ops
     from repro_torch.kernels.contention.ref import contention_rates_reference
     rows = {}
@@ -428,10 +541,13 @@ def phase_contention(torch):
         kern = lambda: ops.contention_rates(*args, rounds=rounds)
         plain = lambda: contention_rates_reference(*args, rounds=rounds)
         got = kern()
+        again = kern()
         torch.cuda.synchronize()
         err = float((got - plain()).abs().max())
         if not err <= 2e-5:
             fail(f"contention {name}: max abs err {err} > 2e-5")
+        if not torch.equal(got, again):
+            fail(f"contention {name}: two launches gave different bits")
         b_ms, b_by, terms = contention_bound(E, S, F, L, rounds, obj)
         row = dict(E=E, S=S, F=F, L=L, rounds=rounds, objectives=obj,
                    max_abs_err=err, ms=time_ms(torch, kern),
@@ -445,7 +561,8 @@ def phase_contention(torch):
               f"objectives={obj}: max_abs_err={err:.3g} ms={row['ms']} "
               f"device_ms={row['device_ms']} plain_ms="
               f"{row['plain_ms']} bound_ms={b_ms:.3g} ({b_by}; "
-              f"{json.dumps(terms)}) library_ms=null")
+              f"{json.dumps(terms)}) library_ms=null; bitwise across two "
+              f"launches")
     return rows
 
 
@@ -1162,9 +1279,6 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from repro_torch.kernels import build
-    from repro_torch.kernels.sim_step import ops
-    from repro_torch.kernels.sim_step.ref import (sim_interval_reference,
-                                                  sim_step_reference)
     from repro_torch.core import (PPOConfig, train_ppo, make_env_params,
                                   SimEnv, explore, AutoMDTController)
     from repro_torch.core.ppo import init_agent, _make_episode_fn
@@ -1194,10 +1308,24 @@ def main():
     print(f"[build] nvcc seconds per source (started together): "
           f"{json.dumps(nvcc_s)}; phase {time.monotonic() - t0:.2f} s")
     for name in build.SOURCES:
-        for line in build.build_log.get(name, "").splitlines():
+        for line in build.nvcc_output(name).splitlines():
             if ("registers" in line or "spill" in line
                     or "Compiling entry" in line):
                 print(f"[build] {name}: {line.strip()}")
+    # every K1/K3 instance: registers, static shared memory, spills (none)
+    ptxas = {name: ptxas_report(build.nvcc_output(name))
+             for name in ("sim_step", "contention")}
+    for name, rows in ptxas.items():
+        if not rows:
+            fail(f"no ptxas report for {name}: was it built in this run?")
+        for r in rows:
+            print(f"[ptxas] {name}: {r['function']}: {r['registers']} "
+                  f"registers, {r['smem_bytes']} bytes smem, spill stores "
+                  f"{r['spill_stores']}, loads {r['spill_loads']}")
+        spilled = [r["function"] for r in rows
+                   if r["spill_stores"] or r["spill_loads"]]
+        if spilled:
+            fail(f"{name}: registers spilled in {spilled}")
     # the bf16 routes of K4 and K5 run on the tensor cores and copy into
     # shared memory asynchronously: count both in the built SASS
     sass = {}
@@ -1219,53 +1347,7 @@ def main():
                  f"no asynchronous copy in some instance: {json.dumps(path)}")
 
     # --- 3. kernel parity and times ------------------------------------------
-    S = 50
-    shapes = {}
-    for E in (1, 32, 16384):   # probes, training, a wide batch
-        bufs, rates_dt, cap, _ = sim_inputs(torch, E, S, seed=E)
-        got = ops.sim_interval_batch(bufs, rates_dt, cap)
-        torch.cuda.synchronize()
-        err = max_err(got, sim_interval_reference(bufs, rates_dt, cap))
-        if not err <= 1e-5:
-            fail(f"sim_interval E={E}: max abs err {err} > 1e-5")
-        n_bytes = 4 * (E * 4 + E * S * 3 + E * 5)
-        b_ms, b_by, terms = bound_ms(n_bytes, SIM_OPS_PER_SUBSTEP * E * S,
-                                     SIM_CHAIN_OPS_PER_SUBSTEP * S)
-        shapes[("sim_interval", E)] = dict(
-            E=E, S=S, max_abs_err=err,
-            ms=time_ms(torch, lambda: ops.sim_interval_batch(bufs, rates_dt,
-                                                             cap)),
-            device_ms=device_ms(torch, lambda: ops.sim_interval_batch(
-                bufs, rates_dt, cap), "sim_interval_kernel"),
-            plain_ms=time_ms(torch, lambda: sim_interval_reference(
-                bufs, rates_dt, cap), samples=5, inner=3, warmup=1),
-            bound_ms=b_ms, bound_by=b_by, bound_terms=terms,
-            library_ms=None)
-    E = 16384
-    bufs, _, cap, rate = sim_inputs(torch, E, S, seed=E + 1)
-    got = ops.sim_step_batch(bufs, rate, cap, substeps=S)
-    torch.cuda.synchronize()
-    err = max_err(got, sim_step_reference(bufs, rate, cap, substeps=S))
-    if not err <= 1e-4:
-        fail(f"sim_step E={E}: max abs err {err} > 1e-4")
-    # rate * dt is off the chain: it does not wait on the buffers
-    b_ms, b_by, terms = bound_ms(4 * (E * 7 + E * 5),
-                                 (SIM_OPS_PER_SUBSTEP + 3) * E * S,
-                                 SIM_CHAIN_OPS_PER_SUBSTEP * S)
-    shapes[("sim_step", E)] = dict(
-        E=E, S=S, max_abs_err=err,
-        ms=time_ms(torch, lambda: ops.sim_step_batch(bufs, rate, cap,
-                                                     substeps=S)),
-        device_ms=device_ms(torch, lambda: ops.sim_step_batch(
-            bufs, rate, cap, substeps=S), "sim_interval_kernel"),
-        plain_ms=time_ms(torch, lambda: sim_step_reference(
-            bufs, rate, cap, substeps=S), samples=5, inner=3, warmup=1),
-        bound_ms=b_ms, bound_by=b_by, bound_terms=terms, library_ms=None)
-    for (name, E), row in shapes.items():
-        print(f"[parity] {name} E={E} S={S}: max_abs_err={row['max_abs_err']:.3g} "
-              f"ms={row['ms']:.5f} device_ms={row['device_ms']} "
-              f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.6f} "
-              f"({row['bound_by']}; {json.dumps(row['bound_terms'])})")
+    S, shapes = phase_sim(torch)
 
     # --- 4. main path: explore -> PPO -> live control -----------------------
     reset_launches()
@@ -1403,11 +1485,12 @@ def main():
             "library_ms": None, "E": E, "S": S,
             "device_ms": row["device_ms"], "bound_terms": row["bound_terms"],
         })
-    for E in (1, 16384):
+    for E in (1, 4096, 16384):
         kernels[0][f"at_E{E}"] = {k: shapes[("sim_interval", E)][k] for k in
                                   ("max_abs_err", "ms", "device_ms",
                                    "plain_ms", "bound_ms", "bound_by",
                                    "bound_terms")}
+    kernels[0]["ptxas"] = ptxas["sim_step"]
     kernels[0]["launches_fleet"] = fl["train_launches"]["sim_interval"]
     row = k3["fleet"]
     kernels.append({
@@ -1429,6 +1512,7 @@ def main():
                                   "max_abs_err", "ms", "device_ms",
                                   "plain_ms", "bound_ms", "bound_by",
                                   "bound_terms")}
+    kernels[-1]["ptxas"] = ptxas["contention"]
     row = k4["smollm_bf16"]
     kernels.append({
         "name": "flash_attention", "route": "cuda",

@@ -67,8 +67,24 @@ def build(name: str) -> float | None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{proc.stdout}")
+    _log_path(name).write_text(proc.stdout)
     os.replace(tmp, out)   # atomic: a reader never sees half a file
     return time.monotonic() - t0
+
+
+def _log_path(name: str) -> Path:
+    out = library_path(name)
+    return out.with_name(f"{out.name}.log")
+
+
+def nvcc_output(name: str) -> str:
+    """nvcc's output (the ptxas -v report) for the built library of
+    ``csrc/<name>.cu``, from this process's build or the one that built
+    the library; empty if neither is at hand."""
+    if name in build_log:
+        return build_log[name]
+    path = _log_path(name)
+    return path.read_text() if path.exists() else ""
 
 
 def build_all() -> dict[str, float | None]:

@@ -2,8 +2,8 @@
 contention solve on PyTorch's current stream.
 
 The caller (``ops.py``) has checked devices, dtypes, shapes and contiguity;
-this module allocates the output and the water-fill workspace, passes raw
-device pointers and raises if the launch was refused."""
+this module allocates the output, passes raw device pointers and raises if
+the launch was refused. The kernel takes no workspace."""
 
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ def _entries():
     if _fns is None:
         lib = build.load("contention")
         fn = lib.contention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.contention_max_links.argtypes = []
@@ -42,15 +42,12 @@ def launch(threads, act, onpath, tpt, bw, floor, cap, *, rounds):
     L = onpath.shape[-1]
     fn = _entries()[0]
     out = torch.empty((E, S, F, 3), dtype=torch.float32, device=act.device)
-    obj = floor is not None
-    ws = (torch.empty((E * S * F * L * 3,), dtype=torch.float32,
-                      device=act.device) if obj and rounds > 0 else None)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(act.device):  # launch on the tensors' card
         stream = torch.cuda.current_stream(act.device).cuda_stream
         err = fn(threads.data_ptr(), act.data_ptr(), onpath.data_ptr(),
                  tpt.data_ptr(), bw.data_ptr(), ptr(floor), ptr(cap),
-                 out.data_ptr(), ptr(ws), E, S, F, L, rounds, stream)
+                 out.data_ptr(), E, S, F, L, rounds, stream)
     if err != 0:
         raise RuntimeError(f"contention kernel launch failed: cudaError "
                            f"{err}")

@@ -43,8 +43,7 @@ def sim_interval_batch(bufs, rates_dt, cap):
     E, S = rates_dt.shape[0], rates_dt.shape[1]
     if not _on_cuda((bufs, rates_dt, cap), ((E, 2), (E, S, 3), (E, 2))):
         return sim_interval_reference(bufs, rates_dt, cap)
-    out = kernel.launch(bufs, rates_dt, cap, rate_env_stride=3 * S,
-                        rate_sub_stride=3, rate_scale=1.0, substeps=S)
+    out = kernel.launch_interval(bufs, rates_dt, cap)
     sim_interval_batch.launches += 1
     return out
 
@@ -55,14 +54,13 @@ sim_interval_batch.launches = 0
 def sim_step_batch(bufs, rate, cap, *, substeps=50, duration=1.0):
     """bufs (E, 2); rate (E, 3) aggregate per-stage rates held for the
     whole interval; cap (E, 2). Returns (bufs' (E, 2), moved (E, 3)).
-    The same kernel as ``sim_interval_batch`` with a substep stride of 0."""
+    The recurrence of ``sim_interval_batch``, with one rate per env."""
     E = bufs.shape[0]
     if not _on_cuda((bufs, rate, cap), ((E, 2), (E, 3), (E, 2))):
         return sim_step_reference(bufs, rate, cap, substeps=substeps,
                                   duration=duration)
-    out = kernel.launch(bufs, rate, cap, rate_env_stride=3,
-                        rate_sub_stride=0, rate_scale=duration / substeps,
-                        substeps=substeps)
+    out = kernel.launch_step(bufs, rate, cap, rate_scale=duration / substeps,
+                             substeps=substeps)
     sim_step_batch.launches += 1
     return out
 

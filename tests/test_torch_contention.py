@@ -128,14 +128,69 @@ def test_cuda_kernel_matches_plain_version(shape):
                  L=shape["L"])
     if shape["L"] == 1:
         x["onpath"][:] = 1.0
+    _hold_cuda_kernel(x, shape["rounds"])
+
+
+def _hold_cuda_kernel(x, rounds):
+    """Both solves (objectives off and on): one launch each, within ATOL of
+    the plain version, and a second launch with the same bits."""
     for objectives in (False, True):
         before = ops.contention_rates.launches
-        got = _port(x, "cuda", objectives, shape["rounds"])
+        got = _port(x, "cuda", objectives, rounds)
+        again = _port(x, "cuda", objectives, rounds)
         torch.cuda.synchronize()
-        assert ops.contention_rates.launches == before + 1
+        assert ops.contention_rates.launches == before + 2
+        assert torch.equal(got, again)
         t = {k: torch.from_numpy(v).cuda() for k, v in x.items()}
         want = contention_rates_reference(
             t["threads"], t["act"], t["onpath"], t["tpt"], t["bw"],
             t["floor"] if objectives else None,
-            t["cap"] if objectives else None, rounds=shape["rounds"])
+            t["cap"] if objectives else None, rounds=rounds)
         torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+
+
+# the edges of the kernel's layouts: one flow (a lane group of one), the
+# first flow count past a lane group (a block), 257 flows (one block of 256
+# threads, 2 flows a thread, at 3 links); 2 and 3 links; water-filling with
+# rounds = F
+EDGE_SHAPES = [dict(E=2, S=6, F=F, L=L) for F in (1, 33, 257)
+               for L in (2, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EDGE_SHAPES,
+                         ids=[f"F{s['F']}L{s['L']}" for s in EDGE_SHAPES])
+def test_cuda_kernel_matches_plain_version_at_the_edges(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("cuda: needs a CUDA card and nvcc")
+    x = operands(shape["F"] + shape["L"], E=shape["E"], S=shape["S"],
+                 F=shape["F"], L=shape["L"])
+    _hold_cuda_kernel(x, shape["F"])
+
+
+# flow counts that take a cluster of 2, 4 and 8 blocks with objectives (600
+# at 3 links, 600 and 2048 at 4), and past what a cluster of 8 holds on chip
+# (2100 at 4 links, 16385 at 1 link), where each thread walks its flows
+LARGE_SHAPES = [dict(E=1, S=3, F=600, L=3), dict(E=1, S=3, F=600, L=4),
+                dict(E=1, S=2, F=2048, L=4), dict(E=1, S=2, F=2100, L=4),
+                dict(E=1, S=2, F=16385, L=1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LARGE_SHAPES,
+                         ids=[f"F{s['F']}L{s['L']}" for s in LARGE_SHAPES])
+def test_cuda_kernel_matches_plain_version_in_clusters(shape):
+    """No floors and caps below a fair share, so 6 water-fill rounds move
+    spill."""
+    if not torch.cuda.is_available():
+        pytest.skip("cuda: needs a CUDA card and nvcc")
+    F, L = shape["F"], shape["L"]
+    x = operands(F + L, E=shape["E"], S=shape["S"], F=F, L=L)
+    if L == 1:
+        x["onpath"][:] = 1.0
+    rng = np.random.default_rng(F)
+    x["floor"][:] = 0.0
+    x["cap"] = np.where(np.isfinite(x["cap"]),
+                        rng.uniform(0.2, 2.0, x["cap"].shape) / F,
+                        np.inf).astype(np.float32)
+    _hold_cuda_kernel(x, 6)

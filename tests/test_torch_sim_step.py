@@ -94,12 +94,16 @@ def test_wrapper_rejects_inputs_the_kernel_does_not_take(bad):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("E", [32, 1000, 16384])
-def test_cuda_kernel_matches_plain_version(E):
+@pytest.mark.parametrize("S", [7, 50, 333])
+@pytest.mark.parametrize("E", [1, 32, 129, 1000, 16384])
+def test_cuda_kernel_matches_plain_version(E, S):
+    """Bitwise, at ragged env blocks (E not a multiple of 32) and ragged
+    rate chunks (S not a multiple of 8, a row of S * 12 bytes not 16-byte
+    aligned), for both forms of the kernel."""
     if not torch.cuda.is_available():
         pytest.skip("cuda: needs a CUDA card and nvcc")
     bufs, rates, cap = (torch.from_numpy(a).cuda()
-                        for a in _inputs(E, 50, seed=E))
+                        for a in _inputs(E, S, seed=E + S))
     rates = rates * 0.02
     before = ops.sim_interval_batch.launches
     got = ops.sim_interval_batch(bufs, rates, cap)
@@ -107,9 +111,9 @@ def test_cuda_kernel_matches_plain_version(E):
     assert ops.sim_interval_batch.launches == before + 1
     want = sim_interval_reference(bufs, rates, cap)
     for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
-    b2, m2 = ops.sim_step_batch(bufs, rates[:, 0] / 0.02, cap, substeps=50)
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+    b2, m2 = ops.sim_step_batch(bufs, rates[:, 0] / 0.02, cap, substeps=S)
     torch.cuda.synchronize()
     for g, w in zip((b2, m2), sim_step_reference(bufs, rates[:, 0] / 0.02,
-                                                 cap, substeps=50)):
-        torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+                                                 cap, substeps=S)):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
