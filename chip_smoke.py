@@ -71,9 +71,28 @@ port's entry points:
                 decode; finite logits, agreement with a prefill through the
                 plain scan, decode against a longer prefill, and a profile
                 of one prefill and one decode step
+ 14. scenarios  bench_scenarios.py's context agent (1500 episodes, 32 envs,
+                all seven condition families) trained on the card, scored
+                with evaluate_scenario against the static and
+                exploration-only baselines on every family, then the step
+                family replayed on a live TransferEngine by ScenarioDriver
+                under the trained AutoMDTController; K1's launch counts and
+                a profile of one episode batch
+ 15. topology   bench_topology.py's policy (4 flows over 3 links, 16 envs,
+                1500 episodes) trained on the card, scored with
+                run_topology_in_dynamic_sim against phase 8's fleet policy
+                and static Globus on the three topology families, then a
+                TopologyController steering four live engines on a
+                MultiLink through link_failover (a ScenarioDriver per link,
+                re-routed at the route bin); one topology episode batch
+                against the CPU; the one-link topology solve against the
+                fleet's, bitwise; K3 at the path's shape with rounds = F;
+                both kernels' launch counts and a profile of one episode
+                batch
 
-It prints its findings on earlier lines, one JSON line with every kernel's
-numbers, the nvidia-smi line, and ends with the line
+It prints each phase's wall time, its findings on earlier lines, one JSON
+line with every kernel's numbers, the nvidia-smi line, and ends with the
+line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
 that line. Without CUDA, or without the repository beside it, it fails.
 """
@@ -136,6 +155,43 @@ FLEET_LIVE_MB = 12           # each live flow's transfer
 # arrivals, hold_frac 0.01, seed 7; fleet_step timed over SCALE_ITERS steps
 SCALE_FLOWS = 4096
 SCALE_ITERS = 20
+# phase 14: bench_scenarios.py's configuration (benchmarks/
+# bench_scenarios.py:41-47, train_dynamic_agent :49, main :80): the context
+# agent trained over all seven families, resampled every round
+SCEN_TPT = (0.2, 0.15, 0.2)
+SCEN_BW = (1.0, 1.0, 1.0)
+SCEN_N_MAX = 50
+SCEN_ENVS = 32
+SCEN_EPISODES = 1500
+SCEN_HORIZON = 60.0
+SCEN_TOTAL_GBIT = 40.0
+SCEN_LIVE_FAMILY = "step"
+SCEN_LIVE_SCALE = 10.0       # sim seconds per wall second of the replay
+SCEN_LIVE_STEPS = 12         # control intervals of the live replay
+# phase 15: bench_topology.py's configuration (benchmarks/
+# bench_topology.py:52-84): 4 flows over 3 links, 16 envs, 1500 episodes,
+# TOPOLOGY_OBS, fairness 0.5, domain-randomized over the three families;
+# its fleet_1link baseline is bench_fleet's train_fleet_agent at the same
+# size and seed, phase 8's policy
+TOPO_FLOWS = 4
+TOPO_LINKS = 3
+TOPO_ENVS = 16
+TOPO_EPISODES = 1500
+TOPO_HORIZON = 60.0
+TOPO_FAMILIES = ("regional_diurnal", "link_failover", "cross_traffic")
+TOPO_LIVE_SCALE = 10.0
+TOPO_LIVE_STEPS = 12
+# K3 at every shape the topology path gives it, rounds = F: training's
+# E=16 envs of 50 substeps, 4 flows over 3 links, objectives off (the
+# path's) and on; the evaluation's one env (run_topology_in_dynamic_sim's
+# reset and steps); and topology_achievable's one substep with every flow
+# at n_max on every stage (TOPO_PATH_THREADS)
+TOPO_PATH_SHAPES = {"topology_path": (16, 50, 4, 3, 4, False, 0.8),
+                    "topology_path_objectives": (16, 50, 4, 3, 4, True,
+                                                 0.8),
+                    "topology_eval": (1, 50, 4, 3, 4, False, 0.8),
+                    "topology_achievable": (1, 1, 4, 3, 4, False, 1.0)}
+TOPO_PATH_THREADS = {"topology_achievable": FLEET_N_MAX}
 # K4 (flash attention) shapes, name: (B, S, Hq, Hkv, D, window, dtype):
 # smollm-135m's prefill in phase 11 (8 prompts of 1024 tokens, 9 q heads
 # over 3 kv heads, head dim 64) in bf16 and in float32, a ragged S, a
@@ -240,18 +296,32 @@ def device_ms(torch, fn, kernel_prefix, n=20):
     each per call), or named apart by its template, counts whole. Per
     recorded launch, not per call: late in this script's run the profiler
     drops the first launches of a window (7 of 10 recorded, on an H100),
-    and a sum over calls would count the dropped ones as free. None where
-    the profiler records no device time for it."""
+    and a sum over calls would count the dropped ones as free. A window
+    late in the run can come back with no device time at all: each such
+    window is printed, counted in ``PROFILER_WINDOWS`` and followed by
+    another, up to three; None where all three came back empty."""
     from torch.profiler import profile, ProfilerActivity
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    per_call = sum(evt.device_time_total / evt.count
-                   for evt in prof.key_averages()
-                   if kernel_prefix in evt.key and evt.count
-                   and evt.device_time_total)
-    return per_call / 1e3 if per_call else None
+    PROFILER_WINDOWS["calls"] += 1
+    for window in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        per_call = sum(evt.device_time_total / evt.count
+                       for evt in prof.key_averages()
+                       if kernel_prefix in evt.key and evt.count
+                       and evt.device_time_total)
+        if per_call:
+            return per_call / 1e3
+        PROFILER_WINDOWS["empty"] += 1
+        print(f"[profiler] {kernel_prefix}: window {window + 1} of 3 "
+              f"recorded no device time")
+    return None
+
+
+# device_ms's profiler windows over the run: calls, and windows that came
+# back with no device time
+PROFILER_WINDOWS = {"calls": 0, "empty": 0}
 
 
 def sass_counts(lib_path):
@@ -486,9 +556,10 @@ def contention_bound(E, S, F, L, rounds, objectives):
     return bound_ms(n_bytes, per_elem * E * S * F * L * 3, chain)
 
 
-def contention_operands(torch, E, S, F, L, *, p_active, seed):
-    """Operands at the main path's value ranges: thread counts in [1, 50],
-    activity masks with ``p_active`` of the flows live, the one-link
+def contention_operands(torch, E, S, F, L, *, p_active, seed,
+                        threads_at=None):
+    """Operands at the main path's value ranges: thread counts in [1, 50]
+    (or all ``threads_at``), activity masks with ``p_active`` of the flows live, the one-link
     embedding (onpath all ones) for L = 1 and random routes otherwise,
     per-stage conditions around bench_fleet.py's profile, floors and caps
     with half the flows uncapped."""
@@ -496,8 +567,11 @@ def contention_operands(torch, E, S, F, L, *, p_active, seed):
     f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
     onpath = (np.ones((E, S, F, L)) if L == 1
               else rng.integers(0, 2, (E, S, F, L)))
+    threads = rng.integers(1, 51, (E, F, 3))
+    if threads_at is not None:
+        threads = np.full((E, F, 3), threads_at)
     return dict(
-        threads=f32(rng.integers(1, 51, (E, F, 3))),
+        threads=f32(threads),
         act=f32(rng.random((E, S, F)) < p_active),
         onpath=f32(onpath),
         tpt=f32(rng.uniform(0.1, 0.3, (E, S, L, 3))),
@@ -526,44 +600,51 @@ CONTENTION_SHAPES = {
 }
 
 
-def phase_contention(torch):
-    """7. K3 against its plain version at every shape of CONTENTION_SHAPES,
-    bit-identical across two launches, with kernel (CUDA events), device
-    (profiler), plain and bound times."""
+def contention_row(torch, name, shape, seed, threads_at=None):
+    """K3 at one shape (E, S, F, L, rounds, objectives, share active) on
+    the card: within 2e-5 of its plain version on the same operands and the
+    same bits from two launches, with kernel (CUDA events), device
+    (profiler), plain and bound times. ``threads_at``: every thread count
+    at that value (``contention_operands``)."""
     from repro_torch.kernels.contention import ops
     from repro_torch.kernels.contention.ref import contention_rates_reference
-    rows = {}
-    for i, (name, (E, S, F, L, rounds, obj, p)) in enumerate(
-            CONTENTION_SHAPES.items()):
-        x = contention_operands(torch, E, S, F, L, p_active=p, seed=i)
-        args = [x[k] for k in ("threads", "act", "onpath", "tpt", "bw")]
-        args += [x["floor"], x["cap"]] if obj else [None, None]
-        kern = lambda: ops.contention_rates(*args, rounds=rounds)
-        plain = lambda: contention_rates_reference(*args, rounds=rounds)
-        got = kern()
-        again = kern()
-        torch.cuda.synchronize()
-        err = float((got - plain()).abs().max())
-        if not err <= 2e-5:
-            fail(f"contention {name}: max abs err {err} > 2e-5")
-        if not torch.equal(got, again):
-            fail(f"contention {name}: two launches gave different bits")
-        b_ms, b_by, terms = contention_bound(E, S, F, L, rounds, obj)
-        row = dict(E=E, S=S, F=F, L=L, rounds=rounds, objectives=obj,
-                   max_abs_err=err, ms=time_ms(torch, kern),
-                   device_ms=device_ms(torch, kern, "contention_kernel"),
-                   plain_ms=time_ms(torch, plain, samples=5, inner=3,
-                                    warmup=1),
-                   bound_ms=b_ms, bound_by=b_by, bound_terms=terms,
-                   library_ms=None)
-        rows[name] = row
-        print(f"[contention] {name} E={E} S={S} F={F} L={L} rounds={rounds} "
-              f"objectives={obj}: max_abs_err={err:.3g} ms={row['ms']} "
-              f"device_ms={row['device_ms']} plain_ms="
-              f"{row['plain_ms']} bound_ms={b_ms:.3g} ({b_by}; "
-              f"{json.dumps(terms)}) library_ms=null; bitwise across two "
-              f"launches")
-    return rows
+    E, S, F, L, rounds, obj, p = shape
+    x = contention_operands(torch, E, S, F, L, p_active=p, seed=seed,
+                            threads_at=threads_at)
+    args = [x[k] for k in ("threads", "act", "onpath", "tpt", "bw")]
+    args += [x["floor"], x["cap"]] if obj else [None, None]
+    kern = lambda: ops.contention_rates(*args, rounds=rounds)
+    plain = lambda: contention_rates_reference(*args, rounds=rounds)
+    got = kern()
+    again = kern()
+    torch.cuda.synchronize()
+    err = float((got - plain()).abs().max())
+    if not err <= 2e-5:
+        fail(f"contention {name}: max abs err {err} > 2e-5")
+    if not torch.equal(got, again):
+        fail(f"contention {name}: two launches gave different bits")
+    b_ms, b_by, terms = contention_bound(E, S, F, L, rounds, obj)
+    empty0 = PROFILER_WINDOWS["empty"]
+    dev_ms = device_ms(torch, kern, "contention_kernel")
+    row = dict(E=E, S=S, F=F, L=L, rounds=rounds, objectives=obj,
+               max_abs_err=err, ms=time_ms(torch, kern), device_ms=dev_ms,
+               device_windows_empty=PROFILER_WINDOWS["empty"] - empty0,
+               plain_ms=time_ms(torch, plain, samples=5, inner=3, warmup=1),
+               bound_ms=b_ms, bound_by=b_by, bound_terms=terms,
+               library_ms=None)
+    print(f"[contention] {name} E={E} S={S} F={F} L={L} rounds={rounds} "
+          f"objectives={obj}: max_abs_err={err:.3g} ms={row['ms']} "
+          f"device_ms={row['device_ms']} (empty profiler windows "
+          f"{row['device_windows_empty']}) plain_ms={row['plain_ms']} "
+          f"bound_ms={b_ms:.3g} ({b_by}; {json.dumps(terms)}) "
+          f"library_ms=null; bitwise across two launches")
+    return row
+
+
+def phase_contention(torch):
+    """7. K3 at every shape of CONTENTION_SHAPES (``contention_row``)."""
+    return {name: contention_row(torch, name, shape, i)
+            for i, (name, shape) in enumerate(CONTENTION_SHAPES.items())}
 
 
 def reset_launches():
@@ -732,7 +813,7 @@ def phase_fleet(torch):
           f"{ctl.fleet_policy.n_dispatch} policy dispatches")
     if moved == 0 or ctl.fleet_policy.n_dispatch == 0:
         fail("the live fleet moved no bytes under the port's controller")
-    return dict(res=res, cfg=cfg, rounds=rounds,
+    return dict(res=res, cfg=cfg, rounds=rounds, policy=fleet,
                 train_launches=train_launches, eval_launches=eval_launches,
                 evals=evals, bar=bar)
 
@@ -1273,6 +1354,404 @@ def phase_mamba2(torch):
                 max_diff_step=float(d_step.max()))
 
 
+def phase_scenarios(torch):
+    """14. Single-flow evaluation: bench_scenarios.py's domain-randomized
+    context agent trained through train_ppo, scored with evaluate_scenario
+    against the static and exploration-only baselines on all seven
+    families, then replaying the step family on a live TransferEngine
+    through ScenarioDriver under the trained AutoMDTController."""
+    from repro_torch.core import (PPOConfig, train_ppo, make_env_params,
+                                  AutoMDTController, Workload, CONTEXT_OBS)
+    from repro_torch.core.ppo import init_agent, _make_episode_fn
+    from repro_torch.scenarios import (FAMILIES, ScenarioSpec,
+                                       sample_scenario_batch,
+                                       evaluate_scenario, ScenarioDriver)
+    from repro_torch.transfer import (TransferEngine, SyntheticSource,
+                                      ChecksumSink, StageThrottle)
+    params = make_env_params(tpt=list(SCEN_TPT), bw=list(SCEN_BW),
+                             cap=[2.0, 2.0], n_max=SCEN_N_MAX, device="cuda")
+
+    def draw(rnd, seed=1):
+        _, tables = sample_scenario_batch(
+            SCEN_ENVS, seed=seed * 7919 + rnd, horizon=SCEN_HORIZON,
+            base_tpt=SCEN_TPT, base_bw=SCEN_BW, device="cuda")
+        return Workload(tables=tables)
+
+    cfg = PPOConfig(max_episodes=SCEN_EPISODES, n_envs=SCEN_ENVS,
+                    action_scale=SCEN_N_MAX / 4, seed=1, obs_spec=CONTEXT_OBS,
+                    param_selection="batch_mean", device="cuda")
+    reset_launches()
+    res = train_ppo(params, cfg, workload=draw(0), resample=draw)
+    torch.cuda.synchronize()
+    train_launches = read_launches()
+    rounds = res.episodes // SCEN_ENVS
+    hist = np.asarray(res.history, float)
+    print(f"[scenarios train] {res.episodes} episodes ({rounds} rounds of "
+          f"{SCEN_ENVS} envs over {len(FAMILIES)} families, "
+          f"{cfg.max_steps} steps) in {res.wall_s:.3f} s = "
+          f"{res.episodes / res.wall_s:.1f} episodes/s; best episode reward "
+          f"{res.best_reward:.4f}; launches {json.dumps(train_launches)}")
+    if not np.all(np.isfinite(hist)):
+        fail("non-finite single-flow training reward")
+    expected = rounds * (cfg.max_steps + 1)
+    if train_launches["sim_interval"] != expected:
+        fail(f"scenario training launched {json.dumps(train_launches)}, "
+             f"expected sim_interval = {rounds} rounds x "
+             f"{cfg.max_steps + 1} = {expected}")
+
+    ctrl = AutoMDTController(res.params["policy"], n_max=SCEN_N_MAX,
+                             bw_ref=float(max(SCEN_BW)), deterministic=True,
+                             obs_spec=CONTEXT_OBS, device="cuda")
+    reset_launches()
+    evals, beats, sim_steps = {}, {}, 0
+    for family in FAMILIES:
+        spec = ScenarioSpec(family=family, seed=11, horizon=SCEN_HORIZON,
+                            base_tpt=SCEN_TPT, base_bw=SCEN_BW)
+        ev = evaluate_scenario(spec, ctrl, params=params,
+                               total_gbit=SCEN_TOTAL_GBIT)
+        # the exploration probe's reset and 120 probes, each run's reset
+        # and steps
+        sim_steps += 1 + 120 + sum(1 + len(r.tput) for r in ev.values())
+        evals[family] = ev
+        for label, r in ev.items():
+            if not (np.isfinite(r.utilization) and np.isfinite(r.mean_utility)
+                    and np.all(np.isfinite(r.tput))):
+                fail(f"non-finite scenario evaluation {family}/{label}")
+            if r.delivered <= 0.0:
+                fail(f"{label} delivered nothing on {family}")
+        beats[family] = all(ev["automdt"].utilization > ev[b].utilization
+                            for b in ("static", "exploration_only"))
+        print(f"[scenarios eval] {family}: " + "; ".join(
+            f"{label} utilization {r.utilization:.4f} convergence "
+            f"{r.convergence_steps} mean utility {r.mean_utility:.4f} "
+            f"completion {r.completion_s}" for label, r in ev.items()))
+    torch.cuda.synchronize()
+    eval_launches = read_launches()
+    print(f"[scenarios eval] launches {json.dumps(eval_launches)} over "
+          f"{sim_steps} sim steps (probes and resets included)")
+    print(f"[scenarios eval] the agent's utilization beats both baselines: "
+          + json.dumps(beats))
+    if eval_launches["sim_interval"] != sim_steps:
+        fail(f"scenario evaluation launched {json.dumps(eval_launches)}, "
+             f"expected sim_interval = {sim_steps}")
+
+    # live: the step family replayed on a throttled engine, 1.0 sim Gbit/s
+    # = 8 MB/s, the scenario clock SCEN_LIVE_SCALE times the wall clock
+    unit = 8 * MB
+    spec = ScenarioSpec(family=SCEN_LIVE_FAMILY, seed=11,
+                        horizon=SCEN_HORIZON, base_tpt=SCEN_TPT,
+                        base_bw=SCEN_BW)
+    tpt0, bw0 = (x[0] for x in spec.tables())
+    eng = TransferEngine(
+        SyntheticSource(512 * MB, chunk_bytes=128 * 1024), ChecksumSink(),
+        sender_buf=2 * unit, receiver_buf=2 * unit,
+        throttles=tuple(StageThrottle(float(b) * unit, float(t) * unit)
+                        for t, b in zip(tpt0, bw0)),
+        initial_concurrency=(2, 2, 2), n_max=SCEN_N_MAX, metric_interval=0.2)
+    interval = 0.5
+    live = AutoMDTController(res.params["policy"], n_max=SCEN_N_MAX,
+                             bw_ref=max(SCEN_BW) * unit, deterministic=True,
+                             obs_spec=CONTEXT_OBS, interval=interval,
+                             device="cuda")
+    t0 = time.monotonic()
+    try:
+        with ScenarioDriver(eng, spec.table(device="cuda"),
+                            bytes_per_unit=unit,
+                            time_scale=SCEN_LIVE_SCALE) as drv:
+            trace = live.run(eng, interval=interval,
+                             max_steps=SCEN_LIVE_STEPS)
+            sim_t = drv.sim_time()
+        live_wall = time.monotonic() - t0
+        moved = eng.bytes_written()
+    finally:
+        eng.close()
+    print(f"[scenarios live] {SCEN_LIVE_FAMILY} replayed through "
+          f"ScenarioDriver to sim t={sim_t:.1f} s in {live_wall:.2f} s: "
+          f"{moved / MB:.2f} MB moved = {moved / live_wall / MB:.3f} MB/s; "
+          f"network MB/s per interval "
+          f"{[round(r[2][1] / MB, 2) for r in trace]}; final threads "
+          f"{trace[-1][1] if trace else None}; {live.n_dispatch} policy "
+          f"dispatches")
+    if moved == 0 or live.n_dispatch == 0:
+        fail("the live replay moved no bytes under the port's controller")
+
+    fn = _make_episode_fn(params, cfg, randomize_t0=True)
+    state = init_agent(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    tables = draw(0).tables
+    prof = profile_round(torch, lambda: fn(state, tables, gen),
+                         ("sim_interval_kernel",))
+    print(f"[scenarios profile] n_envs={SCEN_ENVS}: " + json.dumps(prof))
+    return dict(res=res, train_launches=train_launches,
+                eval_launches=eval_launches, beats=beats, profile=prof)
+
+
+def topology_draw(n_envs, seed=1, device="cuda"):
+    """bench_topology.py's per-round draw: graphs and routes over the three
+    families, arrivals over the arrival families, objectives dropped."""
+    from repro_torch.scenarios import sample_topology_batch
+
+    def draw(rnd):
+        wl = sample_topology_batch(n_envs, TOPO_FLOWS, n_links=TOPO_LINKS,
+                                   seed=seed * 7919 + rnd,
+                                   horizon=TOPO_HORIZON, base_tpt=FLEET_TPT,
+                                   base_bw=FLEET_BW, device=device)
+        return wl.replace(objectives=None, specs=None)
+    return draw
+
+
+def topology_config(dev, *, episodes, n_envs, seed=1):
+    """bench_topology.py's train_topology_agent configuration."""
+    from repro_torch.core import PPOConfig, TOPOLOGY_OBS
+    return PPOConfig(max_episodes=episodes, n_envs=n_envs,
+                     action_scale=FLEET_N_MAX / 4, seed=seed,
+                     obs_spec=TOPOLOGY_OBS, param_selection="batch_mean",
+                     n_flows=TOPO_FLOWS, fairness_coef=0.5, device=dev)
+
+
+def topology_episode(torch, dev, *, seed, objectives):
+    """One topology episode batch (rollout + updates, 4 envs x 4 flows over
+    3 links) from explicit draws made with NumPy, the workload drawn on
+    ``dev``. Returns (rewards, {name: param})."""
+    from repro_torch.core.ppo import init_agent, _make_episode_fn
+    from repro_torch.scenarios import sample_topology_batch
+    n_envs = 4
+    cfg = topology_config(dev, episodes=n_envs, n_envs=n_envs, seed=seed)
+    wl = sample_topology_batch(n_envs, TOPO_FLOWS, n_links=TOPO_LINKS,
+                               seed=seed, horizon=TOPO_HORIZON,
+                               base_tpt=FLEET_TPT, base_bw=FLEET_BW,
+                               objective_mix=True if objectives else None,
+                               device=dev)
+    rng = np.random.default_rng(seed)
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    draws = dict(threads0=to(rng.integers(1, 16, (n_envs, TOPO_FLOWS, 3))),
+                 t0_draw=to(rng.random(n_envs)),
+                 noise=to(rng.normal(size=(cfg.max_steps, n_envs,
+                                           TOPO_FLOWS, 3))))
+    fn = _make_episode_fn(fleet_params(dev), cfg, randomize_t0=True)
+    state, rew, _ = fn(init_agent(cfg), None, flows=wl.flows,
+                       objectives=wl.objectives if objectives else None,
+                       topology=wl.topology, **draws)
+    return rew.cpu(), {n: t.detach().cpu() for n, t in
+                       state["params"].named_parameters()}
+
+
+def phase_topology(torch, fleet_policy):
+    """15. The topology path: bench_topology.py's policy trained through
+    train_ppo over link graphs, scored with run_topology_in_dynamic_sim on
+    the three families against phase 8's single-link fleet policy and
+    static Globus, then a TopologyController steering four live engines on
+    a MultiLink through link_failover (one ScenarioDriver per link, the
+    engines re-routed at the route bin); one topology episode batch on the
+    card against the CPU; the one-link topology solve against the fleet's,
+    bitwise; K3 held and timed at the path's shape."""
+    from repro_torch.core import (train_ppo, effective_obs_spec, FleetPolicy,
+                                  TopologyController, GlobusController)
+    from repro_torch.core.fleet import _solve_fleet_rates
+    from repro_torch.core.ppo import init_agent, _make_episode_fn
+    from repro_torch.core.topology import (PathSpec, single_link_graph,
+                                           _solve_topology_rates)
+    from repro_torch.scenarios import (TopologySpec, arrival_schedule,
+                                       run_topology_in_dynamic_sim,
+                                       sample_fleet_batch, ScenarioDriver)
+    from repro_torch.transfer import MultiLink, SyntheticSource, ChecksumSink
+    params = fleet_params("cuda")
+    cfg = topology_config("cuda", episodes=TOPO_EPISODES, n_envs=TOPO_ENVS)
+    draw = topology_draw(TOPO_ENVS)
+    reset_launches()
+    res = train_ppo(params, cfg, workload=draw(0), resample=draw)
+    torch.cuda.synchronize()
+    train_launches = read_launches()
+    rounds = res.episodes // TOPO_ENVS
+    hist = np.asarray(res.history, float)
+    batch_means = hist[: rounds * TOPO_ENVS].reshape(rounds, TOPO_ENVS).mean(1)
+    print(f"[topology train] {res.episodes} episodes ({rounds} rounds of "
+          f"{TOPO_ENVS} envs x {TOPO_FLOWS} flows over {TOPO_LINKS} links, "
+          f"{cfg.max_steps} steps) in {res.wall_s:.3f} s = "
+          f"{res.episodes / res.wall_s:.1f} episodes/s; best batch-mean "
+          f"reward {batch_means.max():.4f}, last {batch_means[-1]:.4f}; "
+          f"launches {json.dumps(train_launches)}")
+    if not np.all(np.isfinite(hist)):
+        fail("non-finite topology training reward")
+    expected = rounds * (cfg.max_steps + 1)
+    if (train_launches["contention"] != expected
+            or train_launches["sim_interval"] != expected):
+        fail(f"topology training launched {json.dumps(train_launches)}, "
+             f"expected contention = sim_interval = {rounds} rounds x "
+             f"{cfg.max_steps + 1} = {expected}")
+
+    topo = FleetPolicy(res.params["policy"], n_max=FLEET_N_MAX,
+                       deterministic=True, obs_spec=effective_obs_spec(cfg),
+                       device="cuda")
+    reset_launches()
+    evals, runs = {}, 0
+    for family in TOPO_FAMILIES:
+        tspec = TopologySpec(family=family, seed=11, n_links=TOPO_LINKS,
+                             n_flows=TOPO_FLOWS, horizon=TOPO_HORIZON,
+                             base_tpt=FLEET_TPT, base_bw=FLEET_BW)
+        flows = arrival_schedule("staggered_start", TOPO_FLOWS,
+                                 horizon=TOPO_HORIZON, seed=11,
+                                 device="cuda")
+        actors = {"topology": topo, "fleet_1link": fleet_policy,
+                  "static": [GlobusController() for _ in range(TOPO_FLOWS)]}
+        for label, actor in actors.items():
+            ev = run_topology_in_dynamic_sim(tspec, flows, params, actor,
+                                             seed=7, label=label)
+            runs += 1
+            evals[(family, label)] = ev
+            if not (np.isfinite(ev.utilization) and np.isfinite(ev.jain)
+                    and np.all(np.isfinite(ev.goodput))):
+                fail(f"non-finite topology evaluation {family}/{label}")
+            if ev.utilization <= 0.0:
+                fail(f"{label} moved nothing on {family}")
+        t, f1, st = (evals[(family, k)] for k in actors)
+        print(f"[topology eval] {family}: " + "; ".join(
+            f"{k} utilization {evals[(family, k)].utilization:.4f} Jain "
+            f"{evals[(family, k)].jain:.4f} recovery_s "
+            f"{evals[(family, k)].recovery_s}" for k in actors)
+            + f"; topology/fleet_1link "
+            f"{t.utilization / max(f1.utilization, 1e-9):.3f}, "
+            f"topology/static {t.utilization / max(st.utilization, 1e-9):.3f}")
+    torch.cuda.synchronize()
+    eval_launches = read_launches()
+    steps = int(round(TOPO_HORIZON / float(params.duration)))
+    # each run: the reset's solve, then per step the step's solve and the
+    # achievable's; one sim_step launch per reset and step
+    want_k3, want_k1 = runs * (1 + 2 * steps), runs * (1 + steps)
+    print(f"[topology eval] launches {json.dumps(eval_launches)} over {runs} "
+          f"runs of {steps} steps; expected contention {want_k3}, "
+          f"sim_interval {want_k1}")
+    if (eval_launches["contention"] != want_k3
+            or eval_launches["sim_interval"] != want_k1):
+        fail("topology evaluation launched the kernels an unexpected "
+             "number of times")
+
+    # live: link_failover on a MultiLink, 1.0 sim Gbit/s = 8 MB/s per link,
+    # each link's schedule replayed by its own ScenarioDriver
+    unit = 8 * MB
+    tspec = TopologySpec(family="link_failover", seed=11, n_links=TOPO_LINKS,
+                         n_flows=TOPO_FLOWS, horizon=TOPO_HORIZON,
+                         base_tpt=FLEET_TPT, base_bw=FLEET_BW)
+    tpt, bw, onpath, route_bin = tspec.arrays()
+    fail_wall = route_bin / TOPO_LIVE_SCALE
+    interval = 0.5
+    net = MultiLink(TOPO_LINKS)
+    drivers = [ScenarioDriver(net.link(e), (tpt[e], bw[e], tspec.bin_seconds),
+                              bytes_per_unit=unit,
+                              time_scale=TOPO_LIVE_SCALE).start()
+               for e in range(TOPO_LINKS)]
+    _, paths = tspec.compile(device="cuda")
+    ctl = TopologyController(
+        res.params["policy"], n_flows=TOPO_FLOWS, n_max=FLEET_N_MAX,
+        obs_spec=topo.obs_spec, interval=interval, deterministic=True,
+        paths=PathSpec(paths.onpath, torch.tensor(fail_wall)),
+        link_bw_ref=bw.max(axis=(1, 2)) * unit, bw_ref=float(bw.max()) * unit,
+        device="cuda")
+    rerouted = []
+    t0 = time.monotonic()
+    try:
+        engines = [net.attach(SyntheticSource(512 * MB,
+                                              chunk_bytes=128 * 1024,
+                                              seed=f),
+                              ChecksumSink(), path=np.flatnonzero(onpath[0][f]),
+                              sender_buf=2 * unit, receiver_buf=2 * unit,
+                              initial_concurrency=(2, 2, 2),
+                              n_max=FLEET_N_MAX, metric_interval=0.2)
+                   for f in range(TOPO_FLOWS)]
+
+        def on_step(row):
+            if row[0] >= fail_wall and not rerouted:
+                for f, eng in enumerate(engines):
+                    net.reroute(eng, np.flatnonzero(onpath[1][f]))
+                rerouted.append(row[0])
+
+        trace = ctl.run(net, interval=interval, max_steps=TOPO_LIVE_STEPS,
+                        on_step=on_step)
+        live_wall = time.monotonic() - t0
+        per_flow = net.bytes_written_all()
+        paths_now = [net.path_of(e) for e in engines]
+    finally:
+        for d in drivers:
+            d.stop()
+        net.close()
+    print(f"[topology live] {len(trace)} control intervals in "
+          f"{live_wall:.2f} s over {TOPO_LINKS} links; re-routed at "
+          f"{rerouted} s (route bin {fail_wall:.2f} s wall): per flow MB "
+          f"{[round(b / MB, 2) for b in per_flow]}; paths now {paths_now}; "
+          f"final threads {trace[-1][1] if trace else None}; "
+          f"{ctl.fleet_policy.n_dispatch} policy dispatches")
+    if (min(per_flow) == 0 or ctl.fleet_policy.n_dispatch == 0
+            or not rerouted):
+        fail("the live MultiLink did not move bytes on every flow under "
+             "the port's TopologyController, or was never re-routed")
+
+    for objectives in (False, True):
+        out = {d: topology_episode(torch, d, seed=5, objectives=objectives)
+               for d in ("cuda", "cpu")}
+        err_rew = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+        err_par = max(float((out["cuda"][1][n] - out["cpu"][1][n]).abs().max())
+                      for n in out["cpu"][1])
+        print(f"[topology agree] card vs CPU, one topology episode batch (4 "
+              f"envs x 4 flows over 3 links, objectives {objectives}): "
+              f"rewards {err_rew:.3g}, params {err_par:.3g}")
+        if not (err_rew <= 1e-4 and err_par <= 1e-4):
+            fail("the card's topology episode disagrees with the CPU's")
+
+    # the one-link embedding: topology equals fleet bit for bit on the card
+    wl = sample_fleet_batch(FLEET_ENVS, FLEET_FLOWS, seed=3,
+                            horizon=FLEET_HORIZON, base_tpt=FLEET_TPT,
+                            base_bw=FLEET_BW, objective_mix={
+                                "floor_deadline_frac": 0.1}, device="cuda")
+    graph = single_link_graph(wl.tables)
+    ones = PathSpec(torch.ones((FLEET_ENVS, 1, FLEET_FLOWS, 1),
+                               device="cuda"),
+                    torch.full((FLEET_ENVS,), float("inf"), device="cuda"))
+    rng = np.random.default_rng(3)
+    threads = torch.from_numpy(rng.integers(
+        1, 51, (FLEET_ENVS, FLEET_FLOWS, 3)).astype(np.float32)).cuda()
+    t0s = torch.from_numpy(rng.uniform(0, 50, FLEET_ENVS).astype(
+        np.float32)).cuda()
+    floors = wl.objectives._replace(rate_cap=torch.full_like(
+        wl.objectives.rate_cap, float("inf")))
+    same = {}
+    for name, objs in (("no objectives", None), ("floors", floors)):
+        a = _solve_fleet_rates(params, wl.tables, threads, wl.flows, t0s, 50,
+                               objs)
+        b = _solve_topology_rates(params, graph, ones, threads, wl.flows, t0s,
+                                  50, objs)
+        same[name] = bool(torch.equal(a, b))
+    print(f"[topology e1] one link, every flow routed, no finite cap: "
+          f"topology == fleet bitwise {json.dumps(same)}")
+    if not all(same.values()):
+        fail("the one-link topology solve differs from the fleet's on the "
+             "card")
+
+    k3 = {name: contention_row(torch, name, shape, 40 + i,
+                               threads_at=TOPO_PATH_THREADS.get(name))
+          for i, (name, shape) in enumerate(TOPO_PATH_SHAPES.items())}
+    # the main path's launches at each shape: the training total read above;
+    # the evaluation's total, read and checked above, is one reset and one
+    # step per run at E = 1, S = 50 and one achievable solve per step
+    k3["topology_path"]["launches"] = train_launches["contention"]
+    k3["topology_path_objectives"]["launches"] = 0
+    k3["topology_eval"]["launches"] = runs * (1 + steps)
+    k3["topology_achievable"]["launches"] = runs * steps
+    fn_cfg = topology_config("cuda", episodes=TOPO_ENVS, n_envs=TOPO_ENVS)
+    fn = _make_episode_fn(params, fn_cfg, randomize_t0=True)
+    state = init_agent(fn_cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    wl0 = draw(0)
+    prof = profile_round(torch, lambda: fn(state, None, gen, flows=wl0.flows,
+                                           topology=wl0.topology),
+                         ("contention_kernel", "sim_interval_kernel"))
+    print(f"[topology profile] n_envs={TOPO_ENVS} x {TOPO_FLOWS} flows over "
+          f"{TOPO_LINKS} links: " + json.dumps(prof))
+    return dict(res=res, train_launches=train_launches,
+                eval_launches=eval_launches, k3=k3, profile=prof)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1288,6 +1767,14 @@ def main():
     # parity is held in full float32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    walls, lap_t = {}, [time.monotonic()]
+
+    def lap(phase):
+        """Print and keep the wall seconds since the last lap."""
+        now = time.monotonic()
+        walls[phase] = now - lap_t[0]
+        lap_t[0] = now
+        print(f"[wall] phase {phase}: {walls[phase]:.2f} s")
 
     # --- 1. device ----------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1301,6 +1788,7 @@ def main():
     print(f"[device] {card}; SM clock now, max: {clocks}; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, "
           f"{sys.version.split()[0]}")
+    lap(1)
 
     # --- 2. build -----------------------------------------------------------
     t0 = time.monotonic()
@@ -1345,9 +1833,11 @@ def main():
                            for c in path.values()) == 0:
             fail(f"{kernel} in lib{name} has no tensor-core instruction or "
                  f"no asynchronous copy in some instance: {json.dumps(path)}")
+    lap(2)
 
     # --- 3. kernel parity and times ------------------------------------------
     S, shapes = phase_sim(torch)
+    lap(3)
 
     # --- 4. main path: explore -> PPO -> live control -----------------------
     reset_launches()
@@ -1406,6 +1896,7 @@ def main():
     if launches["sim_interval"] != expected:
         fail(f"sim_interval launched {launches['sim_interval']} times on "
              f"the main path, expected {expected}")
+    lap(4)
 
     # --- 5. agreement with the plain path on the CPU --------------------------
     cpu_params = make_env_params(tpt=[0.08, 0.16, 0.2], bw=[1.0, 1.0, 1.0],
@@ -1437,6 +1928,7 @@ def main():
           f"rewards {err_rew:.3g}, params {err_par:.3g}")
     if not (err_explore <= 1e-5 and err_rew <= 1e-4 and err_par <= 1e-4):
         fail("the card's main path disagrees with the CPU's")
+    lap(5)
 
     # --- 6. scale: three episode batches at 4096 envs; where a round goes ---
     big = PPOConfig(max_episodes=3 * 4096, n_envs=4096, action_scale=10.0,
@@ -1456,21 +1948,39 @@ def main():
         gen.manual_seed(0)
         print(f"[profile] n_envs={n_envs}: " + json.dumps(profile_round(
             torch, lambda: fn(state, None, gen), ("sim_interval_kernel",))))
+    lap(6)
 
     # --- 7. contention kernel parity and times --------------------------------
     k3 = phase_contention(torch)
+    lap(7)
     # --- 8. the fleet's main path: train -> evaluate -> live control ---------
     fl = phase_fleet(torch)
+    lap(8)
     # --- 9. fleet agreement with the CPU, scale-out, profile ------------------
     phase_fleet_scale(torch)
+    lap(9)
     # --- 10. flash-attention kernel parity and times ---------------------------
     k4 = phase_attention(torch)
+    lap(10)
     # --- 11. LM serving: smollm-135m prefill and greedy decode ----------------
     sv = phase_serve(torch)
+    lap(11)
     # --- 12. SSD chunked-scan kernel parity and times --------------------------
     k5 = phase_ssd(torch)
+    lap(12)
     # --- 13. mamba2-1.3b serving: prefill through K5, greedy decode ------------
     mb = phase_mamba2(torch)
+    lap(13)
+    # --- 14. single-flow evaluation: train -> evaluate_scenario -> replay ----
+    sc = phase_scenarios(torch)
+    lap(14)
+    # --- 15. topology: train -> evaluate -> MultiLink control, K3 at F rounds
+    tp = phase_topology(torch, fl["policy"])
+    lap(15)
+    print(f"[wall] per phase s {json.dumps(walls)}; total "
+          f"{sum(walls.values()):.2f} s")
+    print(f"[profiler] device_ms windows: {PROFILER_WINDOWS['calls']} "
+          f"calls, {PROFILER_WINDOWS['empty']} windows empty")
 
     kernels = []
     for name, line, E in (("sim_interval", 54, 32), ("sim_step", 24, 16384)):
@@ -1492,26 +2002,32 @@ def main():
                                    "bound_terms")}
     kernels[0]["ptxas"] = ptxas["sim_step"]
     kernels[0]["launches_fleet"] = fl["train_launches"]["sim_interval"]
+    kernels[0]["launches_scenarios"] = sc["train_launches"]["sim_interval"]
+    kernels[0]["launches_topology"] = tp["train_launches"]["sim_interval"]
     row = k3["fleet"]
     kernels.append({
         "name": "contention", "route": "cuda",
         "source": "src/repro_torch/csrc/contention.cu",
         "replaces": "src/repro/kernels/contention/kernel.py:37",
         "launches": fl["train_launches"]["contention"],
-        "max_abs_err": max(r["max_abs_err"] for r in k3.values()),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in [*k3.values(), *tp["k3"].values()]),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": None, "E": row["E"], "S": row["S"], "F": row["F"],
         "device_ms": row["device_ms"], "bound_terms": row["bound_terms"],
         "launches_eval": fl["eval_launches"]["contention"],
+        "launches_topology": tp["train_launches"]["contention"],
+        "launches_topology_eval": tp["eval_launches"]["contention"],
     })
-    for name, r in k3.items():
+    for name, r in {**k3, **tp["k3"]}.items():
         if name != "fleet":
             kernels[-1][f"at_{name}"] = {
                 k: r[k] for k in ("E", "S", "F", "L", "rounds", "objectives",
                                   "max_abs_err", "ms", "device_ms",
-                                  "plain_ms", "bound_ms", "bound_by",
-                                  "bound_terms")}
+                                  "device_windows_empty", "plain_ms",
+                                  "bound_ms", "bound_by", "bound_terms",
+                                  "launches") if k in r}
     kernels[-1]["ptxas"] = ptxas["contention"]
     row = k4["smollm_bf16"]
     kernels.append({

@@ -28,8 +28,10 @@ unchanged.
 in a handful of NumPy ops, with the cross-flow features and the objective
 block (``objective_features_np``) computed as ``fleet_observe`` computes
 them, a heartbeat health check masking stalled flows, and one act
-dispatch per control interval. The topology controller and online
-adaptation belong to later slices of the port.
+dispatch per control interval. ``TopologyController`` steers N engines
+whose stages traverse a ``MultiLink`` and appends the topology block
+(``core.topology.topology_features``, the sim's own definition). Online
+adaptation belongs to a later slice of the port.
 """
 
 from __future__ import annotations
@@ -43,8 +45,9 @@ import torch
 
 from repro_torch.core import networks as nets
 from repro_torch.core.fleet import (FlowObjective, objective_features_np,
-                                    default_objectives)
-from repro_torch.core.simulator import ObservationSpec, DEFAULT_OBS
+                                    default_objectives, _host)
+from repro_torch.core.simulator import ObservationSpec, DEFAULT_OBS, TOPO_DIM
+from repro_torch.core.topology import topology_features
 from repro_torch.device import resolve_device
 
 # the health check's worker namespace: ONLY ``flow<digits>`` belongs to the
@@ -282,7 +285,11 @@ class FleetController:
     share of the aggregate — and the objective block are appended exactly
     as ``fleet_observe`` computes them, so sim-trained fleet params
     transfer unchanged. ``objectives`` are in ENGINE units (deadline in
-    seconds on the run clock, demand in the engines' byte units)."""
+    seconds on the run clock, demand in the engines' byte units). A
+    topology spec needs the subclass that supplies its block
+    (``TopologyController``)."""
+
+    _topology_block = False  # whether this class appends TOPO_DIM features
 
     def __init__(self, policy_params, *, n_flows, n_max=100, bw_ref=None,
                  deterministic=True, seed=0,
@@ -292,9 +299,9 @@ class FleetController:
         if online is not None:
             raise NotImplementedError("online adaptation lands with the "
                                       "faults-and-online slice of the port")
-        if obs_spec.topology:
-            raise NotImplementedError("the topology features land with the "
-                                      "topology slice of the port")
+        if obs_spec.topology and not self._topology_block:
+            raise NotImplementedError("FleetController emits no topology "
+                                      "features: use TopologyController")
         self.n_flows = n_flows
         self.n_max = n_max
         self.bw_ref = bw_ref
@@ -314,6 +321,12 @@ class FleetController:
     def reset(self):
         self._frames.reset()
         self.fleet_policy.reset()
+
+    def _frame_width(self):
+        """Frame dims this class emits (the topology block is the
+        subclass's)."""
+        w = self.obs_spec.frame_dim
+        return w - TOPO_DIM if self.obs_spec.topology else w
 
     def _fleet_bw(self):
         # the aggregate-utilization normalization: the explicit reference
@@ -337,7 +350,7 @@ class FleetController:
         tps = np.asarray(obs["throughputs"], float)
         F = tps.shape[0]
         if F == 0:
-            return np.zeros((0, self.obs_spec.frame_dim), np.float32)
+            return np.zeros((0, self._frame_width()), np.float32)
         if self.bw_ref is None:
             # ONE normalization reference across the whole fleet, as the
             # sim divides every flow by the same schedule peak
@@ -485,3 +498,58 @@ class FleetController:
                 on_step(trace[-1])
             steps += 1
         return trace
+
+
+class TopologyController(FleetController):
+    """Production phase over a MULTI-LINK path topology: the shared policy
+    drives N live engines whose stages traverse a
+    ``repro_torch.transfer.MultiLink`` (one StageThrottle pool per link).
+    On top of the fleet frames it appends the TOPOLOGY_OBS block —
+    bottleneck-link utilization, path length, my share on the bottleneck —
+    through the sim's own ``topology_features`` on host tensors.
+
+    ``paths``: a static (F, L) 0/1 routing matrix, or a PathSpec-like
+    object (``onpath`` (R, F, L) + ``bin_seconds``) looked up on the
+    controller's run clock, so a failover moves the features when
+    ``MultiLink.reroute`` moves the tokens (``set_paths`` for re-routing
+    decided elsewhere). ``link_bw_ref``: (L,) per-link bandwidth reference
+    in ENGINE units (the live twin of the per-link schedule peaks)."""
+
+    _topology_block = True
+
+    def __init__(self, policy_params, *, paths, link_bw_ref, **kwargs):
+        super().__init__(policy_params, **kwargs)
+        self.link_bw_ref = np.asarray(link_bw_ref, float)
+        self.set_paths(paths)
+
+    def set_paths(self, paths):
+        if hasattr(paths, "onpath"):
+            self._onpath = _host(paths.onpath).astype(float)
+            self._route_bin = float(_host(paths.bin_seconds))
+        else:
+            self._onpath = _host(paths).astype(float)[None]
+            self._route_bin = np.inf
+        if self._onpath.ndim != 3 or self._onpath.shape[1] != self.n_flows:
+            raise ValueError(f"paths must route {self.n_flows} flows: "
+                             f"{self._onpath.shape}")
+
+    def routes(self, t=0.0):
+        """(F, L) routing matrix at run-clock time ``t``."""
+        r = (0 if not np.isfinite(self._route_bin)
+             else min(int(t / self._route_bin), self._onpath.shape[0] - 1))
+        return self._onpath[r]
+
+    def frames_arrays(self, obs, active=None, t=0.0, delivered=None):
+        base = super().frames_arrays(obs, active, t=t, delivered=delivered)
+        if not self.obs_spec.topology:
+            return base
+        if base.shape[0] == 0:
+            return np.zeros((0, self.obs_spec.frame_dim), np.float32)
+        act = (np.ones(base.shape[0]) if active is None
+               else np.asarray(active, float))
+        net = np.asarray(obs["throughputs"], float)[:, 1]
+        host = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+        # literally the sim's feature block, on host tensors: ONE definition
+        rows = topology_features(host(self.routes(t)), host(net), host(act),
+                                 host(self.link_bw_ref)).numpy()
+        return np.concatenate([base, rows], axis=-1).astype(np.float32)

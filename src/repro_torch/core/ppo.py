@@ -21,13 +21,18 @@ episode batch, convergence when the best episode reward reaches
                   Jain, with per-flow objectives when the workload has
                   them), and each (env, step, flow) is one PPO sample
                   against the shared return
+  topology        workload.topology set: the fleet's shared policy over
+                  flows that traverse multi-link paths
+                  (``repro_torch.core.topology``: per-link work-conserving
+                  contention, min over each flow's links); episode start
+                  times randomize over the graphs' horizon
 
 The rollout steps all ``cfg.n_envs`` envs (and all their flows) as one
 batch: one env step of the whole batch is one launch of the simulator
-kernel, plus one of the contention kernel in fleet mode. ``cfg.policy``
-selects the temporal policy ("mlp" | "stacked" frame-stacking | "gru"
-recurrent carry). Topologies and meshes belong to later slices of the port
-and raise NotImplementedError.
+kernel, plus one of the contention kernel in fleet and topology mode.
+``cfg.policy`` selects the temporal policy ("mlp" | "stacked"
+frame-stacking | "gru" recurrent carry). Meshes belong to a later slice of
+the port and raise NotImplementedError.
 
 Random draws (initial threads, episode start times, action noise) come from
 one ``torch.Generator`` on the device; the rollout also takes them as
@@ -47,6 +52,9 @@ from repro_torch.core import networks as nets
 from repro_torch.core.fleet import (fleet_reset, fleet_step, fleet_observe,
                                     flow_bucket, pad_flow_schedule,
                                     pad_flow_objectives, _always_on_batch)
+from repro_torch.core.topology import (Topology, topology_reset,
+                                       topology_step, topology_observe,
+                                       pad_path_spec)
 from repro_torch.core.simulator import (env_reset, env_step, observe, ACT_DIM,
                                         ObservationSpec, DEFAULT_OBS,
                                         history_init, history_push,
@@ -205,26 +213,57 @@ def _rollout(policy_net, env_params, tables, generator=None, *, n_envs, M,
     return obs, act, rew, logp
 
 
-@torch.no_grad()
 def _rollout_fleet(policy_net, env_params, tables, flows, objectives,
-                   generator=None, *, n_envs, n_flows, M, substeps, spec,
-                   randomize_t0, policy="mlp", fairness_coef=0.0,
-                   deadline_coef=1.0, max_active=None, threads0=None,
-                   t0_draw=None, noise=None):
+                   generator=None, **kw):
     """One fleet episode in each of ``n_envs`` envs, stepped as one batch:
     F flows contend for the scheduled capacity, ONE shared policy maps each
     flow's observation row to that flow's action, and every step's reward
     is the shared fleet objective. ``flows``/``objectives``: batched
     (E, F) FlowSchedule/FlowObjective (None = always on / the default
     objective). History windows and the GRU carry get a flow axis, so
-    fleet-trained params drop into the per-flow live controller.
+    fleet-trained params drop into the per-flow live controller. Keywords
+    as ``_rollout_flows``."""
+    horizon = (None if tables is None
+               else tables.tpt.shape[1] * tables.bin_seconds)       # (E,)
+    return _rollout_flows(policy_net, env_params, dict(table=tables),
+                          horizon, (fleet_reset, fleet_observe, fleet_step),
+                          flows, objectives, generator, **kw)
+
+
+def _rollout_topology(policy_net, env_params, topology: Topology, flows,
+                      objectives, generator=None, **kw):
+    """One topology episode in each of ``n_envs`` envs: the fleet rollout's
+    multi-link twin. Flows traverse the link paths of ``topology`` (a
+    batched Topology) and contend per link through the work-conserving
+    solve; the per-flow policy, history and carry contracts are the fleet
+    ones, so topology-trained params drop into the same live controller.
+    The episode start span is the graphs' horizon, T * bin_seconds.
+    Keywords as ``_rollout_flows``."""
+    graph, paths = topology
+    horizon = graph.tpt.shape[2] * graph.bin_seconds                 # (E,)
+    return _rollout_flows(policy_net, env_params,
+                          dict(graph=graph, paths=paths), horizon,
+                          (topology_reset, topology_observe, topology_step),
+                          flows, objectives, generator, **kw)
+
+
+@torch.no_grad()
+def _rollout_flows(policy_net, env_params, world, horizon, env_fns, flows,
+                   objectives, generator=None, *, n_envs, n_flows, M,
+                   substeps, spec, randomize_t0, policy="mlp",
+                   fairness_coef=0.0, deadline_coef=1.0, max_active=None,
+                   threads0=None, t0_draw=None, noise=None):
+    """The multi-flow rollout both worlds share: ``env_fns`` is the
+    (reset, observe, step) triple of the fleet or the topology core and
+    ``world`` the keywords naming its conditions; ``horizon`` (E,) bounds
+    the random episode start when ``randomize_t0``.
 
     Draws from ``generator`` unless given explicitly: ``threads0``
     (E, F, 3), ``t0_draw`` (E,) and ``noise`` (M, E, F, 3). Returns (obs
     (E, M, F, D), action (E, M, F, 3), reward (E, M), logp (E, M, F))."""
+    reset_fn, observe_fn, step_fn = env_fns
     device = env_params.tpt.device
     if randomize_t0:
-        horizon = tables.tpt.shape[1] * tables.bin_seconds            # (E,)
         span = torch.clamp_min(horizon - (M + 1) * env_params.duration, 0.0)
         if t0_draw is None:
             t0_draw = torch.rand(n_envs, generator=generator, device=device)
@@ -232,13 +271,13 @@ def _rollout_fleet(policy_net, env_params, tables, flows, objectives,
     else:
         t0 = 0.0
     fspec = spec._replace(history=1)
-    state = fleet_reset(env_params, n_envs, n_flows, t0, flows=flows,
-                        table=tables, substeps=substeps,
-                        objectives=objectives, max_active=max_active,
-                        generator=generator, threads=threads0)
-    hist = history_init(spec, fleet_observe(
-        env_params, state, flows=flows, table=tables, spec=fspec,
-        objectives=objectives, max_active=max_active))    # (E, F, K, D)
+    state = reset_fn(env_params, n_envs, n_flows, t0, flows=flows,
+                     substeps=substeps, objectives=objectives,
+                     max_active=max_active, generator=generator,
+                     threads=threads0, **world)
+    hist = history_init(spec, observe_fn(
+        env_params, state, flows=flows, spec=fspec, objectives=objectives,
+        max_active=max_active, **world))                  # (E, F, K, D)
     recurrent = policy == "gru"
     h = nets.rnn_carry(policy_net, (n_envs, n_flows)) if recurrent else None
     traj = []
@@ -252,11 +291,10 @@ def _rollout_fleet(policy_net, env_params, tables, flows, objectives,
                torch.randn(mean.shape, generator=generator, device=device))
         action = mean + std * eps
         logp = nets.gaussian_logp(mean, std, action)
-        state, obs_next, reward = fleet_step(
-            env_params, state, action, flows=flows, table=tables,
-            substeps=substeps, spec=fspec, fairness_coef=fairness_coef,
-            objectives=objectives, deadline_coef=deadline_coef,
-            max_active=max_active)
+        state, obs_next, reward = step_fn(
+            env_params, state, action, flows=flows, substeps=substeps,
+            spec=fspec, fairness_coef=fairness_coef, objectives=objectives,
+            deadline_coef=deadline_coef, max_active=max_active, **world)
         hist = history_push(hist, obs_next)
         traj.append((obs, action, reward, logp))
     obs, act, rew, logp = (torch.stack(x, dim=1) for x in zip(*traj))
@@ -355,7 +393,9 @@ def _per_flow_sequences(x):
 
 def _make_episode_fn(env_params, cfg: PPOConfig, *, randomize_t0):
     """One call = n_envs episodes (one batched rollout) + ppo_epochs
-    updates. With ``cfg.n_flows > 1`` the rollout is the fleet's, and every
+    updates. With ``cfg.n_flows > 1`` the rollout is the fleet's, and given
+    a ``topology`` (a batched Topology, which replaces ``tables`` as the
+    world, for any n_flows >= 1) the multi-link twin's. In both, every
     (env, step, flow) sample trains against the SHARED return of its step:
     Monte-Carlo returns are broadcast over flows, GAE runs on each flow's
     own baseline, and the recurrent replay treats each (env, flow) pair as
@@ -364,15 +404,19 @@ def _make_episode_fn(env_params, cfg: PPOConfig, *, randomize_t0):
     the parameters, so the modules' identity survives the update."""
     spec = effective_obs_spec(cfg)
     recurrent = cfg.policy == "gru"
-    fleet = cfg.n_flows > 1
     loss_fn = _loss_recurrent if recurrent else _loss
 
     def episode(train_state, tables, generator=None, *, flows=None,
-                objectives=None, threads0=None, t0_draw=None, noise=None):
+                objectives=None, topology=None, threads0=None, t0_draw=None,
+                noise=None):
         params, opt = train_state["params"], train_state["opt"]
+        fleet = cfg.n_flows > 1 or topology is not None   # a flow axis
         if fleet:
-            obs, act, rew, logp = _rollout_fleet(
-                params["policy"], env_params, tables, flows, objectives,
+            rollout, world = ((_rollout_topology, topology)
+                              if topology is not None
+                              else (_rollout_fleet, tables))
+            obs, act, rew, logp = rollout(
+                params["policy"], env_params, world, flows, objectives,
                 generator, n_envs=cfg.n_envs, n_flows=cfg.n_flows,
                 M=cfg.max_steps, substeps=cfg.substeps, spec=spec,
                 randomize_t0=randomize_t0, policy=cfg.policy,
@@ -423,6 +467,13 @@ def _make_episode_fn(env_params, cfg: PPOConfig, *, randomize_t0):
     return episode
 
 
+def _drawn(resample, rnd) -> Workload:
+    wl = resample(rnd)
+    if not isinstance(wl, Workload):
+        raise TypeError("resample(round) must return a Workload")
+    return wl
+
+
 def train_ppo(env_params, cfg: PPOConfig = None, *, workload=None,
               resample=None, r_max=None, mesh=None):
     """Algorithm 2, schedule-native. Returns TrainResult with the BEST (not
@@ -433,11 +484,16 @@ def train_ppo(env_params, cfg: PPOConfig = None, *, workload=None,
     fleet mode the batched FlowSchedule (None = every flow always on) and
     FlowObjective (None = the default objective), all on the config's
     device. ``repro_torch.scenarios.sample_fleet_batch`` returns one.
-    ``resample``: optional ``fn(round_index) -> Workload`` called before
-    every episode batch to redraw the distribution; an explicitly passed
-    ``workload`` is honored for round 0, resampling starts at round 1.
-    ``cfg.pad_flows`` pads the fleet (and every round's flows and
-    objectives) to ``flow_bucket(cfg.n_flows)`` never-active flows."""
+    With a batched ``Topology`` (``workload.topology``,
+    ``sample_topology_batch``) the rollout is the topology's: the tables
+    are ignored and episode start times randomize over the graphs'
+    horizon. ``resample``: optional ``fn(round_index) -> Workload`` called
+    before every episode batch to redraw the distribution; an explicitly
+    passed ``workload`` with tables or a topology is honored for round 0,
+    resampling starts at round 1. Round 0's workload fixes whether the
+    rollout is the topology's. ``cfg.pad_flows`` pads the fleet (and every
+    round's flows, objectives and routes) to ``flow_bucket(cfg.n_flows)``
+    never-active, pathless flows."""
     cfg = cfg or PPOConfig()
     if cfg.pad_flows and cfg.n_flows > 1:
         cfg = dc_replace(cfg, n_flows=flow_bucket(cfg.n_flows))
@@ -449,10 +505,14 @@ def train_ppo(env_params, cfg: PPOConfig = None, *, workload=None,
         raise ValueError(f"env params live on {env_params.tpt.device}, "
                          f"the config asks for {device}")
     wl = workload if workload is not None else Workload()
+    drawn = wl.tables is not None or wl.topology is not None
+    if resample is not None and not drawn:
+        wl = _drawn(resample, 0)   # round 0's draw fixes the world
+    topo_mode = wl.topology is not None
     gen = torch.Generator(device=env_params.tpt.device)
     gen.manual_seed(cfg.seed)
     train_state = init_agent(cfg)
-    scheduled = wl.tables is not None or resample is not None
+    scheduled = wl.tables is not None or resample is not None or topo_mode
     episode_fn = _make_episode_fn(env_params, cfg, randomize_t0=scheduled)
 
     best_r = -float("inf")
@@ -467,21 +527,23 @@ def train_ppo(env_params, cfg: PPOConfig = None, *, workload=None,
     by_batch_mean = cfg.param_selection == "batch_mean"
 
     while n_episodes < cfg.max_episodes:
-        if resample is not None and (wl.tables is None or rnd > 0):
-            wl = resample(rnd)
-            if not isinstance(wl, Workload):
-                raise TypeError("resample(round) must return a Workload")
+        if resample is not None and rnd > 0:
+            wl = _drawn(resample, rnd)
         rnd += 1
-        flows, objectives = wl.flows, wl.objectives
-        if cfg.n_flows > 1:
+        flows, objectives, topology = wl.flows, wl.objectives, wl.topology
+        if cfg.n_flows > 1 or topo_mode:
             if flows is None:
                 flows = _always_on_batch(cfg.n_envs, cfg.n_flows,
                                          env_params.tpt.device)
-            if cfg.pad_flows:
+            if cfg.pad_flows and cfg.n_flows > 1:
                 flows = pad_flow_schedule(flows, cfg.n_flows)
                 objectives = pad_flow_objectives(objectives, cfg.n_flows)
+                if topology is not None:
+                    topology = Topology(topology.graph, pad_path_spec(
+                        topology.paths, cfg.n_flows))
         train_state, ep_rewards, loss = episode_fn(
-            train_state, wl.tables, gen, flows=flows, objectives=objectives)
+            train_state, wl.tables, gen, flows=flows, objectives=objectives,
+            topology=topology)
         ep_rewards = ep_rewards.cpu().numpy()
         if by_batch_mean:
             batch_mean = float(ep_rewards.mean())

@@ -23,7 +23,12 @@ def stage_utility(t, n, *, k=K_DEFAULT):
 
 
 def utility(throughputs, threads, *, k=K_DEFAULT):
-    """throughputs/threads: (..., 3) for (read, network, write)."""
+    """throughputs/threads: (..., 3) for (read, network, write): tensors,
+    or array-likes, which become float32 CPU tensors (the event-driven
+    oracle scores its host lists through here)."""
+    throughputs = torch.as_tensor(throughputs, dtype=torch.float32)
+    threads = torch.as_tensor(threads, dtype=torch.float32,
+                              device=throughputs.device)
     k = torch.as_tensor(k, dtype=torch.float32, device=threads.device)
     return torch.sum(throughputs / torch.pow(k, threads), dim=-1)
 

@@ -3,17 +3,20 @@
   schedule.py   re-export of repro_torch.core.schedule
   families.py   the condition, flow-arrival and topology families (NumPy;
                 a copy of the reference module)
-  spec.py       ScenarioSpec (JSON scenario files) and the domain-
-                randomized samplers of condition tables, fleet arrivals
-                and per-flow objectives, returning a Workload; every NumPy
-                draw is byte-identical to the reference's for the same seed
-  evaluate.py   scoring of a shared fleet policy or per-flow baselines on
-                one scenario and arrival schedule (utilization, Jain,
-                deadline hits)
+  spec.py       ScenarioSpec and TopologySpec (JSON scenario files) and
+                the domain-randomized samplers of condition tables, link
+                graphs, fleet arrivals and per-flow objectives, returning a
+                Workload; every NumPy draw is byte-identical to the
+                reference's for the same seed
+  evaluate.py   scoring on dynamic scenarios: one controller against the
+                static and exploration-only baselines, a shared fleet
+                policy or per-flow baselines under an arrival schedule, and
+                the same over a multi-link topology
+  driver.py     ScenarioDriver (live replay of a scenario on a
+                TransferEngine, SharedLink or MultiLink link) and
+                FaultInjector (a copy of the reference module)
 
-Not ported yet: TopologySpec/sample_topology_batch (topology slice),
-faults.py and the fault_mix draws (fault slice), driver.py
-(ScenarioDriver, FaultInjector) and the single-flow evaluation harness.
+Not ported yet: faults.py and the fault_mix draws (fault slice).
 """
 
 from repro_torch.scenarios.schedule import (ScheduleTable, make_table,
@@ -26,6 +29,16 @@ from repro_torch.scenarios.families import (FAMILIES, ARRIVAL_FAMILIES,
 from repro_torch.scenarios.spec import (ScenarioSpec, default_specs,
                                         sample_scenario_batch,
                                         arrival_schedule, sample_fleet_batch,
-                                        sample_objectives, holdout_families)
-from repro_torch.scenarios.evaluate import (run_fleet_in_dynamic_sim,
-                                            FleetEvalResult)
+                                        sample_objectives, holdout_families,
+                                        TopologySpec, sample_topology_batch)
+from repro_torch.scenarios.evaluate import (EvalResult, run_in_dynamic_sim,
+                                            evaluate_scenario,
+                                            default_params,
+                                            exploration_baseline,
+                                            static_baseline,
+                                            StaticController,
+                                            run_fleet_in_dynamic_sim,
+                                            FleetEvalResult,
+                                            run_topology_in_dynamic_sim,
+                                            TopologyEvalResult)
+from repro_torch.scenarios.driver import ScenarioDriver, FaultInjector

@@ -1,18 +1,40 @@
-"""Fleet evaluation: score a shared fleet policy, or F independent per-flow
-controllers, on one scenario under one flow-arrival schedule (port of the
-fleet half of ``repro.scenarios.evaluate``).
+"""Evaluation harness: score controllers on dynamic scenarios (port of
+``repro.scenarios.evaluate``).
 
-F contending flows run through ``repro_torch.core.fleet`` (one env, E=1)
-under the scenario's condition table and the arrival schedule. The actor
-is a shared ``FleetPolicy`` (it sees the whole fleet observation matrix)
-or a list of F independent controllers (Globus, Marlin, AutoMDT, each
-blind to the others). Scored on aggregate utilization — total delivered
-over the integral of the fleet-aware achievable bottleneck — and the
-time-mean Jain index over steps where flows contend. Each sim step is one
-contention launch and one sim_step launch on the card.
+SINGLE FLOW (``run_in_dynamic_sim``, ``evaluate_scenario``): any controller
+(AutoMDTController, MarlinOptimizer, GlobusController, or the
+exploration-only StaticController) through the schedule-aware dense
+simulator (one env, E=1: one sim_step launch per step on the card), scored
+per scenario on
 
-The single-flow harness (``run_in_dynamic_sim``, the exploration-only
-baseline) and the topology scorer are not ported yet.
+  convergence_steps   first step at >= ``frac`` of the instantaneous
+                      achievable bottleneck (None if never reached)
+  utilization         mean delivered / achievable over the run
+  mean_utility        mean per-step utility reward (the PPO objective)
+  completion_s        steps to deliver ``total_gbit`` (None if unfinished)
+
+against the two frozen-world baselines: ``static_baseline`` (Globus-style
+fixed configuration) and ``exploration_baseline`` (probe the schedule's
+opening conditions once, hold n* forever).
+
+FLEET (``run_fleet_in_dynamic_sim``): F contending flows through
+``repro_torch.core.fleet`` (E=1) under the scenario's condition table and
+an arrival schedule. The actor is a shared ``FleetPolicy`` (it sees the
+whole fleet observation matrix) or a list of F independent controllers
+(Globus, Marlin, AutoMDT, each blind to the others). Scored on aggregate
+utilization — total delivered over the integral of the fleet-aware
+achievable bottleneck — and the time-mean Jain index over steps where
+flows contend. Each sim step is one contention launch and one sim_step
+launch on the card.
+
+TOPOLOGY (``run_topology_in_dynamic_sim``): the same over a multi-link
+``TopologySpec`` through ``repro_torch.core.topology``: utilization over
+the integrated path-aware achievable (one more contention launch per
+step), Jain, and on ``link_failover`` the recovery time after the
+failure.
+
+Initial threads come from a ``torch.Generator`` seeded with ``seed`` on
+the params' device.
 """
 
 from __future__ import annotations
@@ -23,12 +45,167 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from repro_torch.core.controller import AutoMDTController
+from repro_torch.core import GlobusController, explore
+from repro_torch.core.controller import AutoMDTController, FleetPolicy
 from repro_torch.core.fleet import (FlowSchedule, FlowObjective, jain_index,
                                     fleet_reset, fleet_step, fleet_observe,
                                     fleet_achievable)
+from repro_torch.core.simulator import (SimParams, make_env_params,
+                                        env_reset, env_step, SimEnv)
+from repro_torch.core.topology import (topology_reset, topology_step,
+                                       topology_observe, topology_achievable,
+                                       _batched_topology)
 from repro_torch.device import as_f32
-from repro_torch.scenarios.schedule import ScheduleTable
+from repro_torch.scenarios.schedule import ScheduleTable, bottleneck_trace
+
+
+class StaticController:
+    """Exploration-only baseline: holds one fixed allocation forever."""
+
+    def __init__(self, n3):
+        self.n = np.asarray(n3, dtype=int)
+
+    def update(self, throughputs):
+        return self.n.copy()
+
+
+def default_params(spec, *, n_max=50, cap=2.0, device=None) -> SimParams:
+    """SimParams for a spec on ``device`` (None: the CUDA device): the
+    static tpt/bw fields hold the BASE conditions (only cap/n_max/duration/
+    k matter on the scheduled path)."""
+    return make_env_params(tpt=list(spec.base_tpt), bw=list(spec.base_bw),
+                           cap=[cap, cap], n_max=n_max, device=device)
+
+
+def exploration_baseline(spec, params, *, n_samples=120, seed=0):
+    """Probe the scenario's OPENING conditions (explore once before the
+    transfer, trust the numbers forever), then never adapt. The probe world
+    is the schedule's first bin held constant, a ``SimEnv`` on the params'
+    device."""
+    table = spec.table(device=params.tpt.device)
+    opening = ScheduleTable(tpt=table.tpt[:1], bw=table.bw[:1],
+                            bin_seconds=table.bin_seconds)
+    env = SimEnv(params, opening, seed=seed)
+    env.reset()
+    ex = explore(env.probe, n_samples=n_samples,
+                 n_max=int(params.n_max), seed=seed)
+    return StaticController(ex.n_star_int()), ex
+
+
+def static_baseline(**kw):
+    return GlobusController(**kw)
+
+
+@dataclass
+class EvalResult:
+    scenario: str
+    controller: str
+    convergence_steps: int | None
+    utilization: float
+    mean_utility: float
+    delivered: float          # Gbit
+    completion_s: float | None  # simulated seconds
+    threads: np.ndarray = field(repr=False)
+    tput: np.ndarray = field(repr=False)
+
+
+def _obs_dict(cap, st):
+    """The engine observe()-dict contract from one flow's (threads,
+    throughputs, buffers) slice, NumPy on the host; ``cap`` (2,)."""
+    return {"threads": list(st.threads),
+            "throughputs": list(st.throughputs),
+            "sender_free": float(cap[0] - st.buffers[0]),
+            "receiver_free": float(cap[1] - st.buffers[1]),
+            "sender_capacity": float(cap[0]),
+            "receiver_capacity": float(cap[1])}
+
+
+def _host_env(st, e=0):
+    """Env ``e``'s slice of a batched state, on the host."""
+    return type(st)(*(x[e].cpu().numpy() for x in st))
+
+
+def _act(controller, o):
+    """One per-flow controller's action on an observe() dict."""
+    if isinstance(controller, AutoMDTController):
+        return controller.step(o)
+    return controller.update(o["throughputs"])
+
+
+def run_in_dynamic_sim(spec, params, controller, *, steps=None, seed=7,
+                       total_gbit=None, frac=0.95, label=None):
+    """One controller through one scenario (1 env step = ``params.duration``
+    simulated seconds) on the params' device. ``steps`` defaults to the
+    scenario horizon; delivered/completion are in Gbit and simulated
+    seconds."""
+    device = params.tpt.device
+    table = spec.table(device=device)
+    batch = ScheduleTable(tpt=table.tpt[None], bw=table.bw[None],
+                          bin_seconds=table.bin_seconds.reshape(1))
+    duration = float(params.duration)
+    steps = steps or int(round(spec.horizon / duration))
+    achievable = bottleneck_trace(table, float(params.n_max)).cpu().numpy()
+    bin_s = float(table.bin_seconds)
+    cap = params.cap.cpu().numpy()
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    st = env_reset(params, 1, table=batch, generator=gen)
+    if hasattr(controller, "reset"):
+        controller.reset()  # fresh context deltas for every scenario run
+    threads_hist, tput_hist, util_hist, ach_hist = [], [], [], []
+    delivered = 0.0
+    completion = None
+    host = _host_env(st)
+    for i in range(steps):
+        n = _act(controller, _obs_dict(cap, host))
+        st, _, r = env_step(params, st,
+                            as_f32(np.asarray(n, float), device)[None],
+                            table=batch)
+        host = _host_env(st)
+        t_mid = float(host.t) - 0.5 * duration
+        idx = min(max(int(t_mid / bin_s), 0), len(achievable) - 1)
+        threads_hist.append(host.threads.tolist())
+        tput_hist.append(float(host.throughputs[2]))
+        util_hist.append(float(r[0]))
+        ach_hist.append(float(achievable[idx]))
+        delivered += tput_hist[-1] * duration  # Gbit/s over duration s
+        if (total_gbit is not None and completion is None
+                and delivered >= total_gbit):
+            completion = (i + 1) * duration  # sim seconds; keep running:
+            # utilization and convergence are scored over the full horizon
+    tput = np.asarray(tput_hist)
+    ach = np.maximum(np.asarray(ach_hist), 1e-9)
+    hits = np.nonzero(tput >= frac * ach)[0]
+    return EvalResult(
+        scenario=spec.name,
+        controller=label or type(controller).__name__,
+        convergence_steps=int(hits[0]) + 1 if len(hits) else None,
+        utilization=float(np.mean(np.minimum(tput / ach, 1.0))),
+        mean_utility=float(np.mean(util_hist)),
+        delivered=delivered,
+        completion_s=completion,
+        threads=np.asarray(threads_hist),
+        tput=tput,
+    )
+
+
+def evaluate_scenario(spec, agent_controller, *, params=None, steps=None,
+                      seed=7, total_gbit=None, device=None):
+    """Agent vs the two frozen-world baselines on one scenario. Returns
+    {label: EvalResult}. ``params`` default to ``default_params(spec)`` on
+    ``device``."""
+    params = params or default_params(spec, device=device)
+    expl_ctrl, _ = exploration_baseline(spec, params, seed=seed)
+    runs = {
+        "automdt": agent_controller,
+        "static": static_baseline(),
+        "exploration_only": expl_ctrl,
+    }
+    return {label: run_in_dynamic_sim(spec, params, ctrl, steps=steps,
+                                      seed=seed, total_gbit=total_gbit,
+                                      label=label)
+            for label, ctrl in runs.items()}
 
 
 @dataclass
@@ -124,17 +301,9 @@ def run_fleet_in_dynamic_sim(spec, flows: FlowSchedule, params, actor, *,
                                 objectives=objs)
             acts = actor.act(obs[0].cpu().numpy())
         else:
-            host = SimpleNamespace(
-                threads=st.threads[0].cpu().numpy(),
-                throughputs=st.throughputs[0].cpu().numpy(),
-                buffers=st.buffers[0].cpu().numpy())
-            acts = []
-            for f, ctrl in enumerate(actor):
-                o = _flow_obs_dict(cap, host, f)
-                if isinstance(ctrl, AutoMDTController):
-                    acts.append(ctrl.step(o))
-                else:
-                    acts.append(ctrl.update(o["throughputs"]))
+            host = _host_env(st)
+            acts = [_act(ctrl, _flow_obs_dict(cap, host, f))
+                    for f, ctrl in enumerate(actor)]
         st, _, _ = fleet_step(params, st,
                               as_f32(np.asarray(acts, float), device)[None],
                               flows=batch, table=table,
@@ -200,3 +369,102 @@ def _deadline_hits(goodput, objectives: FlowObjective, duration):
         if k > 0 and cum[k - 1, f] >= demand[f] - 1e-6:
             hits += 1
     return hits, total
+
+
+@dataclass
+class TopologyEvalResult:
+    scenario: str
+    controller: str
+    utilization: float   # total delivered / integrated achievable over paths
+    jain: float          # time-mean Jain index over contended steps
+    delivered: float     # Gbit, summed over flows
+    mean_active: float   # mean number of active flows per step
+    recovery_s: float | None  # link_failover: sim-seconds from the failure
+    #                           to the fleet re-reaching recovery_frac of
+    #                           achievable (None: never / not a failover)
+    goodput: np.ndarray = field(repr=False)   # (steps, F) per-flow write tps
+    threads: np.ndarray = field(repr=False)   # (steps, F, 3)
+
+
+def run_topology_in_dynamic_sim(tspec, flows: FlowSchedule, params, actor, *,
+                                steps=None, seed=7, label=None,
+                                objectives: FlowObjective = None,
+                                recovery_frac=0.7):
+    """F flows over a multi-link TopologySpec, on the params' device.
+    ``actor`` is a shared ``FleetPolicy`` (fed ``topology_observe``
+    matrices under its own spec: a topology-blind FLEET_OBS policy never
+    sees the topology dims) or a list of F independent per-flow
+    controllers. Utilization is total delivered over the integrated
+    path-aware achievable; Jain averages over steps where >= 2 flows are
+    active. On ``link_failover``, ``recovery_s`` is how long after the
+    failure the fleet takes to climb back to ``recovery_frac`` of the
+    post-failure achievable rate."""
+    device = params.tpt.device
+    graph, paths = _batched_topology(tspec.topology(device=device))
+    n_flows = flows.n_flows
+    duration = float(params.duration)
+    steps = steps or int(round(tspec.horizon / duration))
+    t_start = flows.t_start.cpu().numpy()
+    t_end = flows.t_end.cpu().numpy()
+    t_fail = (float(paths.bin_seconds[0])
+              if tspec.family == "link_failover" else None)
+    batch = FlowSchedule(*(as_f32(x, device)[None] for x in flows))
+    objs = (None if objectives is None else
+            FlowObjective(*(as_f32(x, device)[None] for x in objectives)))
+    world = dict(flows=batch, graph=graph, paths=paths, objectives=objs)
+    cap = params.cap.cpu().numpy()
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    st = topology_reset(params, 1, n_flows, generator=gen, **world)
+    shared = isinstance(actor, FleetPolicy)
+    for c in [actor] if shared else actor:
+        if hasattr(c, "reset"):
+            c.reset()
+    goodput, threads_hist, jains, achs = [], [], [], []
+    n_active_hist = []
+    recovery = None
+    for _ in range(steps):
+        if shared:
+            obs = topology_observe(params, st,
+                                   spec=actor.obs_spec._replace(history=1),
+                                   **world)
+            acts = actor.act(obs[0].cpu().numpy())
+        else:
+            host = _host_env(st)
+            acts = [_act(ctrl, _flow_obs_dict(cap, host, f))
+                    for f, ctrl in enumerate(actor)]
+        st, _, _ = topology_step(params, st,
+                                 as_f32(np.asarray(acts, float), device)[None],
+                                 **world)
+        t_mid = float(st.t[0]) - 0.5 * duration
+        active = ((t_mid >= t_start) & (t_mid < t_end)).astype(np.float32)
+        g = st.throughputs[0, :, 2].cpu().numpy()
+        ach = float(topology_achievable(params, graph, paths, batch,
+                                        as_f32([t_mid], device),
+                                        objectives=objs)[0])
+        goodput.append(g)
+        threads_hist.append(st.threads[0].cpu().numpy())
+        achs.append(ach)
+        n_active_hist.append(active.sum())
+        if active.sum() >= 2:
+            jains.append(float(jain_index(torch.from_numpy(g),
+                                          torch.from_numpy(active))))
+        if (t_fail is not None and recovery is None and t_mid >= t_fail
+                and g.sum() >= recovery_frac * max(ach, 1e-9)):
+            recovery = t_mid + 0.5 * duration - t_fail
+    goodput = np.asarray(goodput)
+    delivered = float(goodput.sum() * duration)
+    achievable = float(np.sum(achs) * duration)
+    return TopologyEvalResult(
+        scenario=tspec.name,
+        controller=label or (type(actor).__name__ if shared
+                             else type(actor[0]).__name__),
+        utilization=min(delivered / max(achievable, 1e-9), 1.0),
+        jain=float(np.mean(jains)) if jains else 1.0,
+        delivered=delivered,
+        mean_active=float(np.mean(n_active_hist)),
+        recovery_s=recovery,
+        goodput=goodput,
+        threads=np.asarray(threads_hist),
+    )

@@ -2,12 +2,14 @@
 ``repro.scenarios.spec``).
 
 A spec is a small, JSON-serializable description (family + knobs + seed)
-that compiles to a ScheduleTable. The samplers draw condition tables,
+that compiles to a ScheduleTable; a ``TopologySpec`` compiles to a link
+graph and its routes. The samplers draw condition tables, link graphs,
 flow-arrival schedules and per-flow objectives with NumPy, on the same
-streams as the reference (the tables' ``seed``, the arrivals'
-``seed + 0x5EED``, the objectives' ``seed + 0x0BB1``), so every array is
-byte-identical to the reference's for the same seed; the arrays then go
-to ``device`` (None: the CUDA device) as torch tensors.
+streams as the reference (the tables' ``seed``, the graphs'
+``seed + 0x70B0``, the arrivals' ``seed + 0x5EED``, the objectives'
+``seed + 0x0BB1``), so every array is byte-identical to the reference's
+for the same seed; the arrays then go to ``device`` (None: the CUDA
+device) as torch tensors.
 
 File format (``.scenario.json``)::
 
@@ -16,8 +18,7 @@ File format (``.scenario.json``)::
      "base_tpt": [0.2, 0.15, 0.2], "base_bw": [1.0, 1.0, 1.0],
      "params": {"burst_prob": 0.3, "load": 0.7}}
 
-Not ported yet: ``TopologySpec``/``sample_topology_batch`` (the topology
-slice) and the ``fault_mix`` draws (the fault slice).
+Not ported yet: the ``fault_mix`` draws (the fault slice).
 """
 
 from __future__ import annotations
@@ -32,8 +33,12 @@ from repro_torch.core.fleet import (make_flow_schedule, stack_flow_schedules,
                                     stack_flow_objectives, PRIORITY_TIERS,
                                     flow_bucket, pad_flow_schedule,
                                     pad_flow_objectives)
+from repro_torch.core.topology import (Topology, make_link_graph,
+                                       make_path_spec, stack_topologies,
+                                       pad_path_spec)
 from repro_torch.core.workload import Workload
-from repro_torch.scenarios.families import FAMILIES, ARRIVAL_FAMILIES
+from repro_torch.scenarios.families import (FAMILIES, ARRIVAL_FAMILIES,
+                                            TOPOLOGY_FAMILIES)
 from repro_torch.scenarios.schedule import (ScheduleTable, make_table,
                                             stack_tables)
 
@@ -212,6 +217,143 @@ def sample_fleet_batch(n, n_flows, *, arrival_families=None,
         flows = pad_flow_schedule(flows, flow_bucket(n_flows))
         objectives = pad_flow_objectives(objectives, flow_bucket(n_flows))
     return Workload(tables=tables, flows=flows, objectives=objectives,
+                    specs=specs)
+
+
+@dataclass
+class TopologySpec:
+    """The multi-link twin of ScenarioSpec: family + knobs + seed compiles
+    to a (LinkGraph, PathSpec) pair — L per-link condition tables plus the
+    time-varying routing matrix. Same JSON round trip
+    (``.topology.json``)."""
+
+    family: str
+    name: str = ""
+    seed: int = 0
+    n_links: int = 2
+    n_flows: int = 4
+    horizon: float = 60.0
+    bin_seconds: float = 1.0
+    base_tpt: tuple = DEFAULT_TPT
+    base_bw: tuple = DEFAULT_BW
+    params: dict = field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.family not in TOPOLOGY_FAMILIES:
+            raise ValueError(f"unknown topology family {self.family!r}; "
+                             f"have {sorted(TOPOLOGY_FAMILIES)}")
+        if self.n_links < 1:
+            raise ValueError("a topology needs at least one link")
+        if not self.name:
+            self.name = f"{self.family}-{self.seed}"
+
+    def arrays(self):
+        """Raw numpy (tpt[L,T,3], bw[L,T,3], onpath[2,F,L],
+        route_bin_seconds): the live-replay side."""
+        fn = TOPOLOGY_FAMILIES[self.family]
+        return fn(self.n_links, self.n_flows, self.horizon,
+                  self.bin_seconds, list(self.base_tpt), list(self.base_bw),
+                  seed=self.seed, **self.params)
+
+    def compile(self, *, device=None):
+        """(LinkGraph, PathSpec) on ``device`` (None: the CUDA device)."""
+        tpt, bw, onpath, route_bin = self.arrays()
+        graph = make_link_graph(tpt, bw, self.bin_seconds, device=device)
+        return graph, make_path_spec(onpath, route_bin,
+                                     device=graph.tpt.device)
+
+    def topology(self, *, device=None) -> Topology:
+        return Topology(*self.compile(device=device))
+
+    # -- topology files ---------------------------------------------------
+    def to_dict(self):
+        d = asdict(self)
+        d["base_tpt"] = list(self.base_tpt)
+        d["base_bw"] = list(self.base_bw)
+        return d
+
+    def to_json(self, path=None):
+        s = json.dumps(self.to_dict(), indent=2, sort_keys=True)
+        if path is not None:
+            with open(path, "w") as f:
+                f.write(s + "\n")
+        return s
+
+    @classmethod
+    def from_dict(cls, d):
+        d = dict(d)
+        d["base_tpt"] = tuple(d.get("base_tpt", DEFAULT_TPT))
+        d["base_bw"] = tuple(d.get("base_bw", DEFAULT_BW))
+        return cls(**d)
+
+    @classmethod
+    def from_json(cls, s_or_path):
+        s = s_or_path
+        if not s.lstrip().startswith("{"):
+            with open(s_or_path) as f:
+                s = f.read()
+        return cls.from_dict(json.loads(s))
+
+
+def sample_topology_batch(n, n_flows, *, n_links=2, families=None,
+                          arrival_families=None, seed=0, horizon=60.0,
+                          bin_seconds=1.0, base_tpt=DEFAULT_TPT,
+                          base_bw=DEFAULT_BW, jitter=0.25,
+                          objective_mix=None, fault_mix=None,
+                          pad_flows=False, device=None):
+    """Domain randomization for topology training: ``n`` (link graph +
+    routes, arrival schedule, objective set) triples — graphs drawn over
+    the topology ``families`` with randomized seeds and per-stage jitter,
+    arrivals and objectives drawn as ``sample_fleet_batch`` draws them,
+    each axis on its own NumPy stream (0x70B0 / 0x5EED / 0x0BB1 offsets;
+    the faults' 0xFA17 stream waits for the fault slice, and ``fault_mix``
+    raises).
+    ``pad_flows=True`` pads the flow axis (schedules, objectives and route
+    rows) to ``flow_bucket(n_flows)``. Returns a ``Workload`` with a
+    batched (leading env axis) topology, flows and objectives on
+    ``device``."""
+    if fault_mix is not None:
+        raise NotImplementedError("sample_topology_batch(fault_mix=) lands "
+                                  "with the fault slice of the port")
+    families = list(families or TOPOLOGY_FAMILIES)
+    rng = np.random.default_rng(seed + 0x70B0)
+    specs = []
+    for i in range(n):
+        fam = families[int(rng.integers(0, len(families)))]
+        scale = 1.0 + jitter * rng.uniform(-1.0, 1.0, size=3)
+        specs.append(TopologySpec(
+            family=fam, seed=int(rng.integers(0, 2 ** 31 - 1)),
+            name=f"{fam}-dr{i}", n_links=n_links, n_flows=n_flows,
+            horizon=horizon, bin_seconds=bin_seconds,
+            base_tpt=tuple(float(t * s) for t, s in zip(base_tpt, scale)),
+            base_bw=tuple(base_bw)))
+    topology = stack_topologies([s.topology(device=device) for s in specs])
+    arrivals = list(arrival_families or ARRIVAL_FAMILIES)
+    arng = np.random.default_rng(seed + 0x5EED)
+    flows = [arrival_schedule(arrivals[int(arng.integers(0, len(arrivals)))],
+                              n_flows, horizon=horizon,
+                              seed=int(arng.integers(0, 2 ** 31 - 1)),
+                              device=device)
+             for _ in range(n)]
+    if objective_mix is None:
+        objectives = [default_objectives(n_flows, device=device)
+                      for _ in range(n)]
+    else:
+        kw = {} if objective_mix is True else dict(objective_mix)
+        orng = np.random.default_rng(seed + 0x0BB1)
+        objectives = [sample_objectives(
+            n_flows, seed=int(orng.integers(0, 2 ** 31 - 1)),
+            horizon=horizon, base_bw=base_bw, device=device, **kw)
+            for _ in range(n)]
+    flows = stack_flow_schedules(flows)
+    objectives = stack_flow_objectives(objectives)
+    if pad_flows:
+        flows = pad_flow_schedule(flows, flow_bucket(n_flows))
+        objectives = pad_flow_objectives(objectives, flow_bucket(n_flows))
+        topology = Topology(graph=topology.graph,
+                            paths=pad_path_spec(topology.paths,
+                                                flow_bucket(n_flows)))
+    return Workload(topology=topology, flows=flows, objectives=objectives,
                     specs=specs)
 
 

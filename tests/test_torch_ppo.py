@@ -194,12 +194,11 @@ def test_unported_regimes_refuse():
         tppo.train_ppo(tenv, tppo.PPOConfig(n_flows=4, device="cpu"),
                        mesh=object())
     with pytest.raises(NotImplementedError):
-        tppo.Workload(topology=object())
-    with pytest.raises(NotImplementedError):
         tppo.Workload(faults=[None])
-    # the fleet axes are ported: a flows/objectives workload is accepted
-    wl = tppo.Workload(flows=object(), objectives=object())
-    assert wl.topology is None and wl.faults is None
+    # the fleet and topology axes are ported: such a workload is accepted
+    wl = tppo.Workload(flows=object(), objectives=object(),
+                       topology=object())
+    assert wl.faults is None
 
 
 def test_train_ppo_static_runs_and_counts_episodes():
