@@ -89,6 +89,28 @@ port's entry points:
                 fleet's, bitwise; K3 at the path's shape with rounds = F;
                 both kernels' launch counts and a profile of one episode
                 batch
+ 16. faults     bench_faults.py's fault-randomized fleet policy (4 flows,
+                16 envs, 1500 episodes, a fault draw compiled into every
+                round's tables and flows) and its fault-blind single-flow
+                baseline trained on the card, both and static scored on
+                eval_world (a kill, a stage hang, a restart): recovery,
+                deficit, completion, deadline hits, utilization; a
+                FaultInjector replaying a hang, a kill and a restart
+                against a CheckpointedFlow under the port's
+                AutoMDTController (no byte lost or replayed, checksum
+                intact); K1 and K3 held on the training's and the scoring's
+                own operands and on an all-down substep
+ 17. online     bench_online.py's frozen fleet policy (1500 episodes over
+                the families outside the hold-out) scored on the held-out
+                step collapse with and without the online residual head
+                and against static; FleetController(online=) steering four
+                live engines on one SharedLink
+ 18. topology faults: topology PPO over floors and fault draws with link
+                blackouts, one such episode batch against the CPU; phase
+                15's policy scored with two flows capped, the caps held,
+                the card run's actions replayed on the CPU through the
+                plain water-fill and on the card without caps; K3 held on
+                the training's and the capped scoring's own operands
 
 It prints each phase's wall time, its findings on earlier lines, one JSON
 line with every kernel's numbers, the nvidia-smi line, and ends with the
@@ -192,6 +214,69 @@ TOPO_PATH_SHAPES = {"topology_path": (16, 50, 4, 3, 4, False, 0.8),
                     "topology_eval": (1, 50, 4, 3, 4, False, 0.8),
                     "topology_achievable": (1, 1, 4, 3, 4, False, 1.0)}
 TOPO_PATH_THREADS = {"topology_achievable": FLEET_N_MAX}
+# phase 16: bench_faults.py's configuration (benchmarks/bench_faults.py:
+# 44-60, train_fault_agent :63, main :184 at quick=False): 4 flows, 16
+# envs, 1500 episodes, horizon 60 s, thread-tight per-thread rates, every
+# round a fresh fault draw, objectives dropped; its automdt_frozen
+# baseline is bench_fleet.py's train_independent_agent (:75) at 1500
+# episodes and 16 envs, one single-flow CONTEXT_OBS agent per flow
+FAULT_TPT = (0.08, 0.05, 0.08)
+FAULT_BW = (1.0, 1.0, 1.0)
+FAULT_N_MAX = 50
+FAULT_FLOWS = 4
+FAULT_ENVS = 16
+FAULT_EPISODES = 1500
+FAULT_HORIZON = 60.0
+FAULT_RECOVERY_FRAC = 0.9
+FAULT_COMPLETION_FRAC = 0.6
+FAULT_MIX = dict(kill_prob=0.7, restart_prob=0.9, hang_prob=0.6)
+# the live replay: a hang, then a kill and a restart, in sim seconds of the
+# 60 s horizon, replayed FAULT_LIVE_SCALE times faster than the wall clock
+FAULT_LIVE_EVENTS = (dict(kind="stage_hang", t=6.0, until=12.0, stage=1),
+                     dict(kind="kill_flow", t=18.0, flow=0),
+                     dict(kind="restart_flow", t=27.0, flow=0))
+FAULT_LIVE_SCALE = 20.0
+FAULT_LIVE_MB = 12
+# phase 17: bench_online.py's configuration (benchmarks/bench_online.py:
+# 37-52, train_frozen_agent :55, main :122 at quick=False): the frozen
+# fleet policy trained on the families outside HOLDOUT (4 flows, 16 envs,
+# 1500 episodes, horizon 90 s), scored on the held-out step collapse
+ONLINE_TPT = (0.2, 0.15, 0.2)
+ONLINE_BW = (1.0, 1.0, 1.0)
+ONLINE_N_MAX = 50
+ONLINE_FLOWS = 4
+ONLINE_ENVS = 16
+ONLINE_EPISODES = 1500
+ONLINE_HORIZON = 90.0
+HOLDOUT = ("step", "brownout", "random_walk")
+COLLAPSE = 0.1
+AT_FRAC = 1.0 / 3.0
+ONLINE_RECOVERY_FRAC = 0.85
+# bench_online.py's ONLINE_CFG, the OnlineConfig fields
+ONLINE_CFG = dict(step=3.0, max_residual=32.0, buffer=192, explore=0.5,
+                  beta=0.35, warmup=2, fallback=-0.6, re_engage=-0.1,
+                  cooldown=2)
+ONLINE_LIVE_STEPS = 8
+# phase 18: topology PPO at bench_topology's width over a world with rate
+# floors (20% of the link for every deadline flow) and faults with link
+# blackouts, TOPO_FAULT_ROUNDS rounds; then phase 15's policy scored on one
+# bench_topology family with two of the four flows capped at a quarter of
+# the link's base bandwidth
+TOPO_FAULT_ROUNDS = 10
+TOPO_FLOOR_FRAC = 0.2
+TOPO_FAULT_MIX = dict(FAULT_MIX, blackout_prob=0.5)
+TOPO_CAP_FAMILY = "cross_traffic"
+TOPO_CAP_FRAC = 0.25
+TOPO_CAPPED = (0, 2)
+# the episode batches phase 18 holds on the card against the CPU. Seed 3's
+# whole episode is held in float32. Seed 9's float32 update sits on a ReLU
+# kink (a block-2 LayerNorm output within float32 rounding of 0, on whose
+# side the devices may differ), so its rollout is held through the rewards
+# and its update from one batch in float64, at phase 5's 1e-4 scaled by
+# float64's unit roundoff over float32's (2**-29)
+TOPO_AGREE_SEED = 3
+TOPO_UPDATE_GAP_SEED = 9
+TOPO_UPDATE_F64_LIMIT = 1e-4 * 2.0 ** -29
 # K4 (flash attention) shapes, name: (B, S, Hq, Hkv, D, window, dtype):
 # smollm-135m's prefill in phase 11 (8 prompts of 1024 tokens, 9 q heads
 # over 3 kv heads, head dim 64) in bf16 and in float32, a ragged S, a
@@ -480,6 +565,33 @@ def max_err(a, b):
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
 
+def sim_check(torch, name, bufs, rates_dt, cap):
+    """K1 (sim_interval) on the operands ``bufs`` (E, 2), ``rates_dt``
+    (E, S, 3), ``cap`` (E, 2): bitwise equal to its plain version, with
+    kernel (CUDA events), device (profiler), plain and bound times."""
+    from repro_torch.kernels.sim_step import ops
+    from repro_torch.kernels.sim_step.ref import sim_interval_reference
+    E, S = rates_dt.shape[:2]
+    kern = lambda: ops.sim_interval_batch(bufs, rates_dt, cap)
+    plain = lambda: sim_interval_reference(bufs, rates_dt, cap)
+    got = kern()
+    torch.cuda.synchronize()
+    want = plain()
+    err = max_err(got, want)
+    if not err <= 1e-5:
+        fail(f"sim_interval {name}: max abs err {err} > 1e-5")
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail(f"sim_interval {name}: not bitwise equal to the plain version")
+    n_bytes = 4 * (E * 4 + E * S * 3 + E * 5)
+    b_ms, b_by, terms = bound_ms(n_bytes, SIM_OPS_PER_SUBSTEP * E * S,
+                                 SIM_CHAIN_OPS_PER_SUBSTEP * S)
+    return dict(E=E, S=S, max_abs_err=err, ms=time_ms(torch, kern),
+                device_ms=device_ms(torch, kern, "sim_interval_kernel"),
+                plain_ms=time_ms(torch, plain, samples=5, inner=3, warmup=1),
+                bound_ms=b_ms, bound_by=b_by, bound_terms=terms,
+                library_ms=None)
+
+
 def phase_sim(torch):
     """3. K1 (sim_interval) at the main path's env counts (1 for the
     probes, 32 for training, 4096 for phase 6) and at 16384, and K2
@@ -487,32 +599,13 @@ def phase_sim(torch):
     (CUDA events), device (profiler), plain and bound times. Returns (S,
     {(name, E): row})."""
     from repro_torch.kernels.sim_step import ops
-    from repro_torch.kernels.sim_step.ref import (sim_interval_reference,
-                                                  sim_step_reference)
+    from repro_torch.kernels.sim_step.ref import sim_step_reference
     S = 50
     shapes = {}
     for E in (1, 32, 4096, 16384):   # probes, training, phase 6, wide
         bufs, rates_dt, cap, _ = sim_inputs(torch, E, S, seed=E)
-        kern = lambda: ops.sim_interval_batch(bufs, rates_dt, cap)
-        plain = lambda: sim_interval_reference(bufs, rates_dt, cap)
-        got = kern()
-        torch.cuda.synchronize()
-        want = plain()
-        err = max_err(got, want)
-        if not err <= 1e-5:
-            fail(f"sim_interval E={E}: max abs err {err} > 1e-5")
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            fail(f"sim_interval E={E}: not bitwise equal to the plain "
-                 f"version")
-        n_bytes = 4 * (E * 4 + E * S * 3 + E * 5)
-        b_ms, b_by, terms = bound_ms(n_bytes, SIM_OPS_PER_SUBSTEP * E * S,
-                                     SIM_CHAIN_OPS_PER_SUBSTEP * S)
-        shapes[("sim_interval", E)] = dict(
-            E=E, S=S, max_abs_err=err, ms=time_ms(torch, kern),
-            device_ms=device_ms(torch, kern, "sim_interval_kernel"),
-            plain_ms=time_ms(torch, plain, samples=5, inner=3, warmup=1),
-            bound_ms=b_ms, bound_by=b_by, bound_terms=terms,
-            library_ms=None)
+        shapes[("sim_interval", E)] = sim_check(torch, f"E={E}", bufs,
+                                                rates_dt, cap)
     E = 16384
     bufs, _, cap, rate = sim_inputs(torch, E, S, seed=E + 1)
     kern = lambda: ops.sim_step_batch(bufs, rate, cap, substeps=S)
@@ -602,17 +695,27 @@ CONTENTION_SHAPES = {
 
 def contention_row(torch, name, shape, seed, threads_at=None):
     """K3 at one shape (E, S, F, L, rounds, objectives, share active) on
-    the card: within 2e-5 of its plain version on the same operands and the
-    same bits from two launches, with kernel (CUDA events), device
-    (profiler), plain and bound times. ``threads_at``: every thread count
-    at that value (``contention_operands``)."""
-    from repro_torch.kernels.contention import ops
-    from repro_torch.kernels.contention.ref import contention_rates_reference
+    operands made at the main path's value ranges (``contention_operands``;
+    ``threads_at``: every thread count at that value), held and timed by
+    ``contention_check``."""
     E, S, F, L, rounds, obj, p = shape
     x = contention_operands(torch, E, S, F, L, p_active=p, seed=seed,
                             threads_at=threads_at)
     args = [x[k] for k in ("threads", "act", "onpath", "tpt", "bw")]
     args += [x["floor"], x["cap"]] if obj else [None, None]
+    return contention_check(torch, name, args, rounds)
+
+
+def contention_check(torch, name, args, rounds):
+    """K3 on the operands ``args`` (threads, act, onpath, tpt, bw, floor,
+    cap) on the card: within 2e-5 of its plain version on the same
+    operands and the same bits from two launches, with kernel (CUDA
+    events), device (profiler), plain and bound times."""
+    from repro_torch.kernels.contention import ops
+    from repro_torch.kernels.contention.ref import contention_rates_reference
+    E, S, F = args[1].shape
+    L = args[2].shape[-1]
+    obj = args[5] is not None or args[6] is not None
     kern = lambda: ops.contention_rates(*args, rounds=rounds)
     plain = lambda: contention_rates_reference(*args, rounds=rounds)
     got = kern()
@@ -1510,19 +1613,24 @@ def topology_config(dev, *, episodes, n_envs, seed=1):
                      n_flows=TOPO_FLOWS, fairness_coef=0.5, device=dev)
 
 
-def topology_episode(torch, dev, *, seed, objectives):
-    """One topology episode batch (rollout + updates, 4 envs x 4 flows over
-    3 links) from explicit draws made with NumPy, the workload drawn on
-    ``dev``. Returns (rewards, {name: param})."""
+def topology_episode(torch, dev, *, seed, objectives, n_envs=4,
+                     faults=False):
+    """One topology episode batch (rollout + updates, ``n_envs`` envs x 4
+    flows over 3 links) from explicit draws made with NumPy, the workload
+    drawn on ``dev``; ``faults``: phase 18's world (floors and a compiled
+    fault draw with link blackouts). Returns (rewards, {name: param})."""
     from repro_torch.core.ppo import init_agent, _make_episode_fn
     from repro_torch.scenarios import sample_topology_batch
-    n_envs = 4
     cfg = topology_config(dev, episodes=n_envs, n_envs=n_envs, seed=seed)
+    if faults:
+        mix = dict(objective_mix=dict(floor_deadline_frac=TOPO_FLOOR_FRAC),
+                   fault_mix=TOPO_FAULT_MIX)
+    else:
+        mix = dict(objective_mix=True if objectives else None)
     wl = sample_topology_batch(n_envs, TOPO_FLOWS, n_links=TOPO_LINKS,
                                seed=seed, horizon=TOPO_HORIZON,
                                base_tpt=FLEET_TPT, base_bw=FLEET_BW,
-                               objective_mix=True if objectives else None,
-                               device=dev)
+                               device=dev, **mix).compiled()
     rng = np.random.default_rng(seed)
     to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
     draws = dict(threads0=to(rng.integers(1, 16, (n_envs, TOPO_FLOWS, 3))),
@@ -1749,7 +1857,981 @@ def phase_topology(torch, fleet_policy):
     print(f"[topology profile] n_envs={TOPO_ENVS} x {TOPO_FLOWS} flows over "
           f"{TOPO_LINKS} links: " + json.dumps(prof))
     return dict(res=res, train_launches=train_launches,
-                eval_launches=eval_launches, k3=k3, profile=prof)
+                eval_launches=eval_launches, k3=k3, profile=prof,
+                policy=topo)
+
+
+class Recorder:
+    """Records the operands of the calls of a kernel wrapper as a path's
+    module holds it (``module.name``) and passes each call on, so the
+    kernel can be held on the operands the path gave it. ``keep``: the
+    indices of the calls whose operands are kept (None: every call);
+    ``n`` counts every call."""
+
+    def __init__(self, module, name, keep=None):
+        self.module, self.name, self.keep = module, name, keep
+        self.calls, self.n = [], 0
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def record(*args, **kw):
+            if self.keep is None or self.n in self.keep:
+                self.calls.append(([a.clone() if hasattr(a, "clone") else a
+                                    for a in args], dict(kw)))
+            self.n += 1
+            return self.real(*args, **kw)
+        setattr(self.module, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def fault_start_times(faults, capacity_kinds):
+    """(E,) interval start per env of a fault draw: the floor of a kill
+    that restarts (its down window opens inside the interval) on even envs,
+    of a capacity fault of ``capacity_kinds`` (its bins are dark) on odd
+    ones, else whichever the env has; 0 for a fault-free env."""
+    t0 = np.zeros(len(faults), np.float32)
+    for i, spec in enumerate(faults):
+        if spec is None:
+            continue
+        outs = spec.outages()
+        kills = [t for t, back in outs.values() if np.isfinite(back)]
+        dark = [e.t for e in spec.events if e.kind in capacity_kinds]
+        pick = (kills if i % 2 == 0 else dark) or kills or dark
+        if pick:
+            t0[i] = np.floor(min(pick))
+    return t0
+
+
+def down_mid_interval(act):
+    """Whether some (env, flow) is active at the interval's first substep
+    and down at a later one: a down window that opens mid-interval."""
+    return bool(((act[:, :1] == 1.0) & (act[:, 1:] == 0.0)).any())
+
+
+def all_down(args, env=0, substeps=slice(10, 20)):
+    """``args`` with every flow of ``env`` down over ``substeps``."""
+    args = [a.clone() if a is not None else None for a in args]
+    args[1][env, substeps] = 0.0
+    return args
+
+
+def integrate_operands(torch, params, rates):
+    """K1's operands for the rates (E, S, F, 3) of one interval, as
+    ``core.fleet._integrate_fleet_rates`` forms them, from empty buffers."""
+    E, S, F = rates.shape[:3]
+    dt = params.duration / S
+    rates_dt = (rates * dt).permute(0, 2, 1, 3).reshape(E * F, S, 3)
+    return (torch.zeros((E * F, 2), device=rates.device),
+            rates_dt.contiguous(), params.cap.expand(E * F, 2).contiguous())
+
+
+class FaultedSpec:
+    """bench_faults.py's _FaultedSpec: ScenarioSpec-shaped, handing back the
+    fault-compiled table."""
+
+    def __init__(self, name, table, horizon):
+        self.name = name
+        self.horizon = horizon
+        self._table = table
+
+    def table(self, *, device=None):
+        return type(self._table)(*(x.to(device) for x in self._table))
+
+
+def eval_world(horizon, n_flows):
+    """bench_faults.py's eval_world, on the card: a kill of the last flow at
+    0.25 h (its share released), a stage-1 hang over 0.45-0.55 h and the
+    restart at 0.65 h. Returns (spec-like, flows, t_fail, t_back)."""
+    from repro_torch.scenarios import (ScenarioSpec, FaultEvent, FaultSpec,
+                                       arrival_schedule,
+                                       apply_faults_to_table,
+                                       apply_faults_to_flows)
+    base = ScenarioSpec(family="static", seed=11, horizon=horizon,
+                        base_tpt=FAULT_TPT, base_bw=FAULT_BW)
+    flows = arrival_schedule("always_on", n_flows, horizon=horizon, seed=11,
+                             device="cuda")
+    t_fail = 0.25 * horizon
+    t_back = 0.65 * horizon
+    spec = FaultSpec(name="bench", events=[
+        FaultEvent(kind="kill_flow", t=t_fail, flow=n_flows - 1),
+        FaultEvent(kind="stage_hang", t=0.45 * horizon,
+                   until=0.55 * horizon, stage=1),
+        FaultEvent(kind="restart_flow", t=t_back, flow=n_flows - 1)])
+    table = apply_faults_to_table(spec, base.table(device="cuda"))
+    flows = apply_faults_to_flows(spec, flows)
+    return (FaultedSpec(f"faulted-{base.name}", table, horizon), flows,
+            t_fail, t_back)
+
+
+def fault_metrics(ev, duration, t_fail, t_back, *,
+                  recovery_frac=FAULT_RECOVERY_FRAC,
+                  completion_frac=FAULT_COMPLETION_FRAC):
+    """bench_faults.py's fault_metrics: (recovery_s, deficit_s,
+    completion_s) from a goodput trace. recovery_s: sim-seconds from the
+    capacity's return (t_back) until the aggregate goodput is back at
+    ``recovery_frac`` of its pre-fault mean; deficit_s: the integrated
+    shortfall below that mean from the failure on, in seconds of
+    pre-fault goodput; completion_s: sim-seconds until ``completion_frac``
+    of the faulted world's achievable volume is delivered."""
+    agg = ev.goodput.sum(axis=1)
+    t_mid = (np.arange(len(agg)) + 0.5) * duration
+    pre = agg[t_mid < t_fail]
+    pre_mean = float(pre.mean()) if len(pre) else 0.0
+    target = recovery_frac * pre_mean
+    recovery = None
+    for t, g in zip(t_mid, agg):
+        if t >= t_back and g >= target:
+            recovery = float(t - t_back) + 0.5 * duration
+            break
+    post = agg[t_mid >= t_fail]
+    deficit = (float(np.maximum(pre_mean - post, 0.0).sum() * duration
+                     / max(pre_mean, 1e-9)) if len(post) else 0.0)
+    achievable = ev.delivered / max(ev.utilization, 1e-9)
+    cum = np.cumsum(agg) * duration
+    hit = np.nonzero(cum >= completion_frac * achievable)[0]
+    completion = float((hit[0] + 1) * duration) if len(hit) else None
+    return recovery, deficit, completion
+
+
+def held_out_spec(horizon, *, seed=23):
+    """bench_online.py's held_out_spec: the held-out ``step`` collapse of
+    the network stage's per-thread share to COLLAPSE at AT_FRAC of the
+    horizon."""
+    from repro_torch.scenarios import ScenarioSpec
+    return ScenarioSpec(family="step", seed=seed, horizon=horizon,
+                        base_tpt=ONLINE_TPT, base_bw=ONLINE_BW,
+                        params=dict(stage=1, at_frac=AT_FRAC,
+                                    factor=COLLAPSE, mode="tpt"))
+
+
+def recovery_metrics(ev, duration, t_fail):
+    """bench_online.py's recovery_metrics: (recovery_s, deficit_s) from
+    the onset: seconds until the aggregate goodput is back at
+    ONLINE_RECOVERY_FRAC of its pre-onset mean, and the integrated
+    post-onset shortfall in seconds of pre-onset goodput."""
+    agg = ev.goodput.sum(axis=1)
+    j_fail = max(int(round(t_fail / duration)) - 1, 1)
+    pre = float(agg[:j_fail].mean())
+    post = agg[j_fail:]
+    deficit_s = float(np.maximum(pre - post, 0.0).sum() * duration
+                      / max(pre, 1e-9))
+    back = np.nonzero(post >= ONLINE_RECOVERY_FRAC * pre)[0]
+    recovery_s = ((back[0] + 1) * duration if back.size
+                  else post.size * duration)
+    return recovery_s, deficit_s
+
+
+def k1_k3_rows(torch, tag, k3_args, rounds, k1_args, *, launches=None):
+    """K3 and K1 held and timed on one interval's operands from a path;
+    returns ({name: K3 row}, {name: K1 row})."""
+    k3 = contention_check(torch, tag, k3_args, rounds)
+    k1 = sim_check(torch, tag, *k1_args)
+    k3["launches"] = k1["launches"] = launches
+    print(f"[sim_interval] {tag} E={k1['E']} S={k1['S']}: bitwise; "
+          f"ms={k1['ms']} device_ms={k1['device_ms']} plain_ms="
+          f"{k1['plain_ms']} bound_ms={k1['bound_ms']:.3g} "
+          f"({k1['bound_by']})")
+    return {tag: k3}, {tag: k1}
+
+
+def phase_faults(torch):
+    """16. Faults: bench_faults.py's fault-randomized fleet policy trained
+    through train_ppo (each round's fault draw compiled into its tables
+    and flows), the fault-blind single-flow agent trained as
+    train_independent_agent does it, the three actors scored on
+    eval_world; then a FaultInjector replaying a hang, a kill and a restart
+    against a CheckpointedFlow that the port's AutoMDTController steers.
+    K1 and K3 held on the training's and the scoring's own operands."""
+    import tempfile
+    from repro_torch.core import (PPOConfig, train_ppo, make_env_params,
+                                  effective_obs_spec, FleetPolicy,
+                                  AutoMDTController, GlobusController,
+                                  FLEET_OBS, CONTEXT_OBS)
+    from repro_torch.core import fleet as fleet_mod, simulator as sim_mod
+    from repro_torch.core.ppo import init_agent, _make_episode_fn
+    from repro_torch.kernels.contention.ref import contention_rates_reference
+    from repro_torch.scenarios import (sample_fleet_batch, sample_objectives,
+                                       run_fleet_in_dynamic_sim, FaultEvent,
+                                       FaultSpec, FaultInjector,
+                                       compile_fault_batch)
+    from repro_torch.transfer import (TransferEngine, SyntheticSource,
+                                      ChecksumSink, StageThrottle,
+                                      RetryPolicy, CheckpointedFlow)
+    n_envs, n_flows, horizon = FAULT_ENVS, FAULT_FLOWS, FAULT_HORIZON
+    params = make_env_params(tpt=list(FAULT_TPT), bw=list(FAULT_BW),
+                             cap=[2.0, 2.0], n_max=FAULT_N_MAX,
+                             device="cuda")
+
+    def draw(rnd, seed=1):
+        wl = sample_fleet_batch(n_envs, n_flows, seed=seed * 7919 + rnd,
+                                horizon=horizon, base_tpt=FAULT_TPT,
+                                base_bw=FAULT_BW, fault_mix=FAULT_MIX,
+                                device="cuda")
+        return wl.replace(objectives=None, specs=None)
+
+    cfg = PPOConfig(max_episodes=FAULT_EPISODES, n_envs=n_envs,
+                    action_scale=FAULT_N_MAX / 4, seed=1, obs_spec=FLEET_OBS,
+                    param_selection="batch_mean", n_flows=n_flows,
+                    fairness_coef=0.5, device="cuda")
+    copies0 = compile_fault_batch.host_copies
+    reset_launches()
+    res = train_ppo(params, cfg, workload=draw(0), resample=draw)
+    torch.cuda.synchronize()
+    train_launches = read_launches()
+    rounds = res.episodes // n_envs
+    copies = compile_fault_batch.host_copies - copies0
+    hist = np.asarray(res.history, float)
+    batch_means = hist[: rounds * n_envs].reshape(rounds, n_envs).mean(1)
+    print(f"[faults train] {res.episodes} fault-randomized episodes "
+          f"({rounds} rounds of {n_envs} envs x {n_flows} flows, "
+          f"{cfg.max_steps} steps) in {res.wall_s:.3f} s = "
+          f"{res.episodes / res.wall_s:.1f} episodes/s; best batch-mean "
+          f"reward {batch_means.max():.4f}, last {batch_means[-1]:.4f}; "
+          f"host copies of the fault compile {copies} "
+          f"({copies / rounds:.2f} a round, one to the host and one back "
+          f"per edited structure); launches {json.dumps(train_launches)}")
+    if not np.all(np.isfinite(hist)):
+        fail("non-finite fault training reward")
+    expected = rounds * (cfg.max_steps + 1)
+    if (train_launches["contention"] != expected
+            or train_launches["sim_interval"] != expected):
+        fail(f"fault training launched {json.dumps(train_launches)}, "
+             f"expected contention = sim_interval = {rounds} rounds x "
+             f"{cfg.max_steps + 1} = {expected}")
+    fault_pol = FleetPolicy(res.params["policy"], n_max=FAULT_N_MAX,
+                            deterministic=True,
+                            obs_spec=effective_obs_spec(cfg), device="cuda")
+
+    icfg = PPOConfig(max_episodes=FAULT_EPISODES, n_envs=n_envs,
+                     action_scale=FAULT_N_MAX / 4, seed=1,
+                     obs_spec=CONTEXT_OBS, param_selection="batch_mean",
+                     device="cuda")
+    # K1's operands from one step in the middle of this training: the
+    # single-flow simulator's 16 rows
+    mid = (-(-icfg.max_episodes // n_envs) // 2 * (icfg.max_steps + 1)
+           + icfg.max_steps // 2)
+    reset_launches()
+    with Recorder(sim_mod, "sim_interval_batch", keep=(mid,)) as blind_rec:
+        indep = train_ppo(params, icfg)
+    torch.cuda.synchronize()
+    frozen_launches = read_launches()
+    irounds = indep.episodes // n_envs
+    print(f"[faults train] the fault-blind single-flow agent: "
+          f"{indep.episodes} episodes in {indep.wall_s:.3f} s = "
+          f"{indep.episodes / indep.wall_s:.1f} episodes/s; best reward "
+          f"{indep.best_reward:.4f}; launches "
+          f"{json.dumps(frozen_launches)}")
+    if not np.all(np.isfinite(indep.history)):
+        fail("non-finite single-flow training reward")
+    if (frozen_launches["sim_interval"] != irounds * (icfg.max_steps + 1)
+            or frozen_launches["contention"] != 0
+            or blind_rec.n != frozen_launches["sim_interval"]
+            or len(blind_rec.calls) != 1):
+        fail(f"the single-flow agent's training launched "
+             f"{json.dumps(frozen_launches)}")
+
+    spec, flows, t_fail, t_back = eval_world(horizon, n_flows)
+    # demands scaled to what the faulted, contended link can move per flow
+    objectives = sample_objectives(n_flows, seed=11, horizon=horizon,
+                                   base_bw=tuple(b / n_flows
+                                                 for b in FAULT_BW),
+                                   device="cuda")
+    duration = float(params.duration)
+    actors = {
+        "fault_trained": fault_pol,
+        "automdt_frozen": [AutoMDTController(
+            indep.params["policy"], n_max=FAULT_N_MAX,
+            bw_ref=float(max(FAULT_BW)), deterministic=True,
+            obs_spec=CONTEXT_OBS, device="cuda") for _ in range(n_flows)],
+        "static": [GlobusController() for _ in range(n_flows)]}
+    reset_launches()
+    evals, metrics = {}, {}
+    with Recorder(fleet_mod, "contention_rates") as k3_rec, \
+            Recorder(fleet_mod, "sim_interval_batch") as k1_rec:
+        for label, actor in actors.items():
+            ev = run_fleet_in_dynamic_sim(spec, flows, params, actor, seed=7,
+                                          label=label, objectives=objectives,
+                                          apply_floors=False)
+            evals[label] = ev
+            metrics[label] = fault_metrics(ev, duration, t_fail, t_back)
+            if not (np.isfinite(ev.utilization) and np.isfinite(ev.jain)
+                    and np.all(np.isfinite(ev.goodput))
+                    and np.isfinite(metrics[label][1])):
+                fail(f"non-finite fault scoring of {label}")
+    torch.cuda.synchronize()
+    eval_launches = read_launches()
+    steps = int(round(horizon / duration))
+    runs = len(actors)
+    for label, ev in evals.items():
+        rec, deficit, completion = metrics[label]
+        print(f"[faults eval] {label}: recovery_s {rec} deficit_s "
+              f"{deficit:.4f} completion_s {completion} deadline hit rate "
+              f"{ev.deadline_hit_rate:.4f} ({ev.deadline_hits}/"
+              f"{ev.deadline_total}) utilization {ev.utilization:.4f}")
+    ratios = {}
+    for base in ("automdt_frozen", "static"):
+        ours = max(metrics["fault_trained"][1], duration / 2)
+        ratios[base] = max(metrics[base][1], duration / 2) / ours
+    bar = ratios["automdt_frozen"] > 1.0
+    print(f"[faults eval] deficit ratio fault_trained vs automdt_frozen "
+          f"{ratios['automdt_frozen']:.4f}, vs static "
+          f"{ratios['static']:.4f}; the reference's bar (fault_trained "
+          f"recovers faster than automdt_frozen): "
+          f"{'held' if bar else 'NOT held'}")
+    print(f"[faults eval] launches {json.dumps(eval_launches)} over {runs} "
+          f"runs of 1 reset + {steps} steps; expected {runs * (1 + steps)} "
+          f"of each (fleet_achievable launches none)")
+    if (eval_launches["contention"] != runs * (1 + steps)
+            or eval_launches["sim_interval"] != runs * (1 + steps)):
+        fail("fault scoring launched the kernels an unexpected number of "
+             "times")
+
+    # K1 and K3 on the path's own operands: one interval of the training
+    # world (a compiled fault draw, each env's interval opening where a
+    # down window or a dark bin falls) and a scoring step inside the hang
+    for rnd in range(8):
+        raw = draw(rnd)
+        run = raw.compiled()
+        t0 = torch.from_numpy(fault_start_times(
+            raw.faults, ("stage_hang",))).cuda()
+        rng = np.random.default_rng(16)
+        threads = torch.from_numpy(rng.integers(
+            1, 51, (n_envs, n_flows, 3)).astype(np.float32)).cuda()
+        bufs, _ = fleet_mod.fleet_interval(
+            params, torch.zeros((n_envs, n_flows, 2), device="cuda"),
+            threads, t0 - 1.0, flows=run.flows, table=run.tables)
+        with Recorder(fleet_mod, "contention_rates") as r3, \
+                Recorder(fleet_mod, "sim_interval_batch") as r1:
+            fleet_mod.fleet_interval(params, bufs, threads, t0,
+                                     flows=run.flows, table=run.tables)
+        train_k3, train_k1 = r3.calls[0][0], r1.calls[0][0]
+        if (down_mid_interval(train_k3[1])
+                and bool((train_k3[3] == 0.0).any())):
+            break
+    else:
+        fail("no fault draw gave an interval with a down window opening "
+             "mid-interval and a dark table bin")
+    print(f"[faults kernels] training operands from round {rnd}'s draw: "
+          f"{int((train_k3[3] == 0.0).any(dim=-1).sum())} dark (env, "
+          f"substep) bins, {int((1.0 - train_k3[1]).sum())} down (env, "
+          f"substep, flow) entries")
+    hang = [i for i, c in enumerate(k3_rec.calls)
+            if bool((c[0][3] == 0.0).any())]
+    if not hang:
+        fail("no scoring step ran inside the hang")
+    i = hang[len(hang) // 2]
+    k3_rows, k1_rows = k1_k3_rows(torch, "fault_train", train_k3, 0,
+                                  train_k1,
+                                  launches=train_launches["contention"])
+    for tag, k3a, k1a, n in (
+            ("fault_eval", k3_rec.calls[i][0], k1_rec.calls[i][0],
+             eval_launches["contention"]),
+            ("fault_all_down", all_down(train_k3), None, None)):
+        if k1a is None:   # K1 on the rates of the all-down solve
+            k1a = integrate_operands(torch, params,
+                                     contention_rates_reference(*k3a))
+        r3, r1 = k1_k3_rows(torch, tag, k3a, 0, k1a, launches=n)
+        k3_rows.update(r3)
+        k1_rows.update(r1)
+    blind = sim_check(torch, "fault_blind_train", *blind_rec.calls[0][0])
+    blind["launches"] = frozen_launches["sim_interval"]
+    k1_rows["fault_blind_train"] = blind
+    print(f"[sim_interval] fault_blind_train E={blind['E']} S={blind['S']} "
+          f"(call {mid} of the fault-blind agent's training): bitwise; "
+          f"ms={blind['ms']} device_ms={blind['device_ms']} plain_ms="
+          f"{blind['plain_ms']} bound_ms={blind['bound_ms']:.3g} "
+          f"({blind['bound_by']})")
+
+    # live: a hang, a kill and a restart replayed by FaultInjector against
+    # a CheckpointedFlow, steered by the fault-blind agent; 1.0 sim Gbit/s
+    # = 8 MB/s
+    unit = 8 * MB
+    total, chunk = FAULT_LIVE_MB * MB, 128 * 1024
+    throttles = tuple(StageThrottle(b * unit, t * unit)
+                      for t, b in zip(FAULT_TPT, FAULT_BW))
+    interval = 0.3
+    ctl = AutoMDTController(indep.params["policy"], n_max=FAULT_N_MAX,
+                            bw_ref=max(FAULT_BW) * unit, deterministic=True,
+                            obs_spec=CONTEXT_OBS, interval=interval,
+                            device="cuda")
+    live_spec = FaultSpec(name="live", events=[
+        FaultEvent(**e) for e in FAULT_LIVE_EVENTS])
+    sink = ChecksumSink()
+    steered = 0
+    with tempfile.TemporaryDirectory() as ckpt:
+        flow = CheckpointedFlow(total, sink, ckpt_dir=ckpt,
+                                chunk_bytes=chunk, seed=5,
+                                engine_kwargs=dict(
+                                    throttles=throttles, retry=RetryPolicy(),
+                                    sender_buf=2 * unit,
+                                    receiver_buf=2 * unit,
+                                    initial_concurrency=(2, 2, 2),
+                                    n_max=FAULT_N_MAX, metric_interval=0.2))
+        flow.start()
+        inj = FaultInjector(flow.engine, live_spec,
+                            on_kill=lambda f: flow.kill(),
+                            on_restart=lambda f: flow.restart(), tick=0.02,
+                            time_scale=FAULT_LIVE_SCALE)
+        t0 = time.monotonic()
+        try:
+            with inj:
+                while (not flow.done()
+                       and time.monotonic() - t0 < 45.0):
+                    eng = flow.engine
+                    if eng is not None and eng.alive:
+                        eng.set_concurrency(ctl.step(eng.observe()))
+                        steered += 1
+                    time.sleep(interval)
+                fired = len(inj._fired)
+        finally:
+            flow.close()
+        live_wall = time.monotonic() - t0
+    ref = ChecksumSink()
+    eng = TransferEngine(SyntheticSource(total, chunk_bytes=chunk, seed=5),
+                         ref, initial_concurrency=(8, 8, 8))
+    deadline = time.monotonic() + 30.0
+    while not eng.done() and time.monotonic() < deadline:
+        time.sleep(0.02)
+    eng.close()
+    intact = sink.digest == ref.digest and sink.nbytes == total
+    print(f"[faults live] FaultInjector replayed {fired} of "
+          f"{len(live_spec.events)} events (hang, kill, restart; "
+          f"{FAULT_LIVE_SCALE:.0f} sim s per wall s) in {live_wall:.2f} s; "
+          f"{sink.nbytes / MB:.2f} of {total / MB:.0f} MB, done "
+          f"{flow.done()}, replayed bytes {flow.cursor.replayed}, checksum "
+          f"{'intact' if intact else 'DIFFERS'}; {steered} controller "
+          f"steps, {ctl.n_dispatch} policy dispatches")
+    if not (flow.done() and flow.cursor.replayed == 0 and intact
+            and fired == len(live_spec.events) and ctl.n_dispatch > 0):
+        fail("the live fault replay lost, replayed or corrupted bytes, or "
+             "did not replay every event under the port's controller")
+
+    fn = _make_episode_fn(params, cfg, randomize_t0=True)
+    state = init_agent(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    wl0 = draw(0)
+
+    def one_round():
+        run = wl0.compiled()
+        return fn(state, run.tables, gen, flows=run.flows)
+
+    prof = profile_round(torch, one_round,
+                         ("contention_kernel", "sim_interval_kernel"))
+    print(f"[faults profile] n_envs={n_envs} x {n_flows} flows, the fault "
+          f"compile included: " + json.dumps(prof))
+    return dict(res=res, train_launches=train_launches,
+                frozen_launches=frozen_launches,
+                eval_launches=eval_launches, k3=k3_rows, k1=k1_rows,
+                ratios=ratios, bar=bar, profile=prof,
+                copies_per_round=copies / rounds)
+
+
+def phase_online(torch):
+    """17. Online adaptation: bench_online.py's frozen fleet policy trained
+    on the families outside HOLDOUT, scored on the held-out step collapse
+    as the online policy (OnlineFleetPolicy with ONLINE_CFG), frozen and
+    static; then FleetController(online=) steering four live engines on
+    one SharedLink."""
+    from repro_torch.core import (PPOConfig, train_ppo, make_env_params,
+                                  effective_obs_spec, FleetPolicy,
+                                  FleetController, GlobusController,
+                                  OnlineConfig, OnlineFleetPolicy, FLEET_OBS)
+    from repro_torch.core.ppo import init_agent, _make_episode_fn
+    from repro_torch.scenarios import (holdout_families, sample_fleet_batch,
+                                       arrival_schedule,
+                                       run_fleet_in_dynamic_sim)
+    from repro_torch.transfer import (SharedLink, SyntheticSource,
+                                      ChecksumSink)
+    n_envs, n_flows, horizon = ONLINE_ENVS, ONLINE_FLOWS, ONLINE_HORIZON
+    params = make_env_params(tpt=list(ONLINE_TPT), bw=list(ONLINE_BW),
+                             cap=[2.0, 2.0], n_max=ONLINE_N_MAX,
+                             device="cuda")
+    duration = float(params.duration)
+    train_families, held = holdout_families(HOLDOUT)
+
+    def draw(rnd, seed=1):
+        wl = sample_fleet_batch(n_envs, n_flows,
+                                families=tuple(train_families),
+                                seed=seed * 7919 + rnd, horizon=horizon,
+                                base_tpt=ONLINE_TPT, base_bw=ONLINE_BW,
+                                device="cuda")
+        return wl.replace(objectives=None, specs=None)
+
+    cfg = PPOConfig(max_episodes=ONLINE_EPISODES, n_envs=n_envs,
+                    action_scale=ONLINE_N_MAX / 4, seed=1,
+                    obs_spec=FLEET_OBS, param_selection="batch_mean",
+                    n_flows=n_flows, fairness_coef=0.5, device="cuda")
+    reset_launches()
+    res = train_ppo(params, cfg, workload=draw(0), resample=draw)
+    torch.cuda.synchronize()
+    train_launches = read_launches()
+    rounds = res.episodes // n_envs
+    print(f"[online train] {res.episodes} episodes on "
+          f"{'/'.join(train_families)} (held out: {'/'.join(held)}) in "
+          f"{res.wall_s:.3f} s = {res.episodes / res.wall_s:.1f} "
+          f"episodes/s; best reward {res.best_reward:.4f}; launches "
+          f"{json.dumps(train_launches)}")
+    if not np.all(np.isfinite(res.history)):
+        fail("non-finite online-phase training reward")
+    expected = rounds * (cfg.max_steps + 1)
+    if (train_launches["contention"] != expected
+            or train_launches["sim_interval"] != expected):
+        fail(f"online-phase training launched {json.dumps(train_launches)}"
+             f", expected {expected} of each")
+    fleet = FleetPolicy(res.params["policy"], n_max=ONLINE_N_MAX,
+                        deterministic=True, obs_spec=effective_obs_spec(cfg),
+                        device="cuda")
+    spec = held_out_spec(horizon)
+    flows = arrival_schedule("always_on", n_flows, horizon=horizon, seed=11,
+                             device="cuda")
+    t_fail = AT_FRAC * horizon
+    online = OnlineFleetPolicy(fleet, OnlineConfig(**ONLINE_CFG),
+                               n_flows=n_flows)
+    actors = {"online": online, "frozen": fleet,
+              "static": [GlobusController() for _ in range(n_flows)]}
+    reset_launches()
+    evals, deficits = {}, {}
+    for label, actor in actors.items():
+        ev = run_fleet_in_dynamic_sim(spec, flows, params, actor, seed=7,
+                                      label=label)
+        evals[label] = ev
+        rec_s, deficit_s = recovery_metrics(ev, duration, t_fail)
+        deficits[label] = deficit_s
+        if not (np.isfinite(ev.utilization) and np.isfinite(deficit_s)
+                and np.all(np.isfinite(ev.goodput))):
+            fail(f"non-finite online-phase scoring of {label}")
+        print(f"[online eval] {label}: recovery_s {rec_s} deficit_s "
+              f"{deficit_s:.4f} utilization {ev.utilization:.4f}")
+    torch.cuda.synchronize()
+    eval_launches = read_launches()
+    steps = int(round(horizon / duration))
+    ratios = {b: deficits[b] / max(deficits["online"], duration / 2.0)
+              for b in ("frozen", "static")}
+    ad = online.adapter
+    bar = deficits["online"] < deficits["frozen"]
+    print(f"[online eval] deficit ratio online vs frozen "
+          f"{ratios['frozen']:.4f}, vs static {ratios['static']:.4f}; "
+          f"adapter mode {ad.mode}, fallbacks {ad.n_fallbacks}, buffer "
+          f"{len(ad.buffer)}, fed {ad._fed}, mean network residual "
+          f"{ad.residual[:, 1].mean():+.1f}; the reference's bar (online's "
+          f"deficit below frozen's): {'held' if bar else 'NOT held'}")
+    print(f"[online eval] launches {json.dumps(eval_launches)}; expected "
+          f"{len(actors)} x (1 + {steps}) = {len(actors) * (1 + steps)} of "
+          f"each")
+    if (eval_launches["contention"] != len(actors) * (1 + steps)
+            or eval_launches["sim_interval"] != len(actors) * (1 + steps)):
+        fail("online-phase scoring launched the kernels an unexpected "
+             "number of times")
+
+    # live: FleetController with the online head on one SharedLink
+    unit = 8 * MB
+    link = SharedLink(aggregate_bps=tuple(b * unit for b in ONLINE_BW),
+                      per_thread_bps=tuple(t * unit for t in ONLINE_TPT))
+    for f in range(n_flows):
+        link.attach(SyntheticSource(1 << 40, chunk_bytes=128 * 1024, seed=f),
+                    ChecksumSink(), sender_buf=2 * unit,
+                    receiver_buf=2 * unit, initial_concurrency=(2, 2, 2),
+                    n_max=ONLINE_N_MAX, metric_interval=0.1)
+    interval = 0.25
+    ctl = FleetController(res.params["policy"], n_flows=n_flows,
+                          n_max=ONLINE_N_MAX, bw_ref=max(ONLINE_BW) * unit,
+                          obs_spec=fleet.obs_spec, interval=interval,
+                          deterministic=True,
+                          online=OnlineConfig(**ONLINE_CFG), device="cuda")
+    t0 = time.monotonic()
+    try:
+        trace = ctl.run(link, interval=interval, max_steps=ONLINE_LIVE_STEPS)
+        live_wall = time.monotonic() - t0
+        moved = sum(link.bytes_written_all())
+    finally:
+        link.close()
+    lad = ctl._online
+    in_range = all(1 <= n <= ONLINE_N_MAX for _, threads, _ in trace
+                   for n3 in threads for n in n3)
+    print(f"[online live] {len(trace)} control intervals in "
+          f"{live_wall:.2f} s, {moved / MB:.2f} MB moved; adapter fed "
+          f"{lad._fed}, buffer {len(lad.buffer) if lad.buffer else 0}, mode "
+          f"{lad.mode}; every applied action in [1, {ONLINE_N_MAX}]: "
+          f"{in_range}; {ctl.fleet_policy.n_dispatch} policy dispatches")
+    if not (len(trace) == ONLINE_LIVE_STEPS
+            and lad._fed >= ONLINE_LIVE_STEPS - 1 and lad.buffer
+            and len(lad.buffer) > 0 and lad.mode in ("on", "off")
+            and in_range and moved > 0):
+        fail("the live online controller missed one of the reference's "
+             "four points (fed every interval, buffer filled, warmup left, "
+             "actions in range)")
+
+    fn = _make_episode_fn(params, cfg, randomize_t0=True)
+    state = init_agent(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    wl0 = draw(0)
+    prof = profile_round(torch, lambda: fn(state, wl0.tables, gen,
+                                           flows=wl0.flows),
+                         ("contention_kernel", "sim_interval_kernel"))
+    print(f"[online profile] n_envs={n_envs} x {n_flows} flows: "
+          + json.dumps(prof))
+    return dict(res=res, train_launches=train_launches,
+                eval_launches=eval_launches, deficits=deficits,
+                ratios=ratios, bar=bar, profile=prof)
+
+
+def update_gap(torch, seed, n_envs):
+    """The PPO update alone of one phase-18 episode batch: the rollout made
+    on the CPU, then ``ppo_epochs`` epochs of ``ppo._ppo_epoch`` from the
+    same parameters on each device, in float32 and in float64 (the
+    moments' dtype is AdamW's arithmetic). No port kernel runs in the
+    update. Returns ({comparison: [max parameter gap after each epoch]}
+    for the card against the CPU in each dtype and float32 against
+    float64 on each device; [per-leaf rows of the first float32 epoch,
+    card against CPU]; {device: (ReLU inputs of the first epoch's policy
+    whose float32 sign differs from float64's, the smallest |input| among
+    them)})."""
+    import copy
+    import inspect
+    from repro_torch.core.ppo import (init_agent, _rollout_topology,
+                                      effective_obs_spec, _returns,
+                                      _ppo_epoch)
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.scenarios import sample_topology_batch
+    adam = {k: v.default for k, v in
+            inspect.signature(adamw_update).parameters.items()
+            if k in ("b1", "b2", "eps")}
+    cfg = topology_config("cpu", episodes=n_envs, n_envs=n_envs, seed=seed)
+    wl = sample_topology_batch(
+        n_envs, TOPO_FLOWS, n_links=TOPO_LINKS, seed=seed,
+        horizon=TOPO_HORIZON, base_tpt=FLEET_TPT, base_bw=FLEET_BW,
+        objective_mix=dict(floor_deadline_frac=TOPO_FLOOR_FRAC),
+        fault_mix=TOPO_FAULT_MIX, device="cpu").compiled()
+    rng = np.random.default_rng(seed)   # topology_episode's draws
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    draws = dict(threads0=to(rng.integers(1, 16, (n_envs, TOPO_FLOWS, 3))),
+                 t0_draw=to(rng.random(n_envs)),
+                 noise=to(rng.normal(size=(cfg.max_steps, n_envs,
+                                           TOPO_FLOWS, 3))))
+    state = init_agent(cfg)
+    obs, act, rew, logp = _rollout_topology(
+        state["params"]["policy"], fleet_params("cpu"), wl.topology,
+        wl.flows, wl.objectives, n_envs=n_envs, n_flows=TOPO_FLOWS,
+        M=cfg.max_steps, substeps=cfg.substeps, spec=effective_obs_spec(cfg),
+        randomize_t0=True, fairness_coef=cfg.fairness_coef,
+        deadline_coef=cfg.deadline_coef, **draws)
+    ret = _returns(rew, cfg.gamma)[:, :, None].expand_as(logp)
+    batch = (obs.reshape(-1, obs.shape[-1]), act.reshape(-1, 3),
+             ret.reshape(-1), logp.reshape(-1))
+    after, first, relu_in = {}, {}, {}
+    for dtype in ("float32", "float64"):
+        for dev in ("cuda", "cpu"):
+            dt = getattr(torch, dtype)
+            params = copy.deepcopy(state["params"]).to(dev, dt)
+            opt = {k: {n: t.to(dev, dt) for n, t in state["opt"][k].items()}
+                   for k in ("m", "v")}
+            opt["step"] = state["opt"]["step"].to(dev)
+            b = tuple(x.to(dev, dt) for x in batch)
+            snaps = after[dtype, dev] = []
+            # the policy's ReLUs take its blocks' LayerNorm outputs
+            ins = relu_in[dtype, dev] = {}
+
+            def keep(module, inputs, out, ins=ins):
+                ins[module] = out.detach().cpu().double()
+            hooks = [m.register_forward_hook(keep)
+                     for name, m in params["policy"].named_modules()
+                     if name.split(".")[-1] in ("ln1", "ln2")]
+            for epoch in range(cfg.ppo_epochs):
+                opt, _, grads = _ppo_epoch(params, b, opt, cfg)
+                for h in hooks:   # the first epoch's inputs only
+                    h.remove()
+                hooks = []
+                snaps.append({n: q.detach().cpu().double().clone()
+                              for n, q in params.named_parameters()})
+                if epoch == 0 and dtype == "float32":
+                    # Adam's first step: m-hat / (sqrt(v-hat) + eps)
+                    mhat = {n: (m / (1 - adam["b1"])).cpu()
+                            for n, m in opt["m"].items()}
+                    den = {n: (torch.sqrt(v / (1 - adam["b2"]))
+                               + adam["eps"]).cpu()
+                           for n, v in opt["v"].items()}
+                    first[dev] = ({n: g.cpu() for n, g in grads.items()},
+                                  mhat, den, snaps[0])
+    pairs = {"card_vs_cpu_float32": (("float32", "cuda"), ("float32", "cpu")),
+             "card_vs_cpu_float64": (("float64", "cuda"), ("float64", "cpu")),
+             "cpu_float32_vs_float64": (("float32", "cpu"),
+                                        ("float64", "cpu")),
+             "card_float32_vs_float64": (("float32", "cuda"),
+                                         ("float64", "cuda"))}
+    gaps = {name: [max(float((x[n] - y[n]).abs().max()) for n in x)
+                   for x, y in zip(after[a], after[b])]
+            for name, (a, b) in pairs.items()}
+    rows = []
+    for n in first["cpu"][0]:
+        (g_c, m_c, d_c, p_c), (g_g, m_g, d_g, p_g) = (first["cpu"],
+                                                      first["cuda"])
+        gap = (p_c[n] - p_g[n]).abs().flatten()
+        j = int(gap.argmax())
+        at = lambda t: float(t[n].flatten()[j])
+        rows.append(dict(
+            leaf=n, abs_g=float(g_c[n].abs().max()),
+            g_gap=float((g_c[n] - g_g[n]).abs().max()),
+            param_gap=float(gap[j]), g=(at(g_c), at(g_g)),
+            denom=(at(d_c), at(d_g)),
+            step=(at(m_c) / at(d_c), at(m_g) / at(d_g))))
+    kinks = {}
+    for dev in ("cuda", "cpu"):
+        x32, x64 = (list(relu_in[t, dev].values())
+                    for t in ("float32", "float64"))
+        flip = [(a > 0) != (b > 0) for a, b in zip(x32, x64)]
+        near = [float(b[f].abs().min()) for b, f in zip(x64, flip)
+                if bool(f.any())]
+        kinks[dev] = (sum(int(f.sum()) for f in flip),
+                      min(near) if near else None)
+    return gaps, rows, kinks
+
+
+def phase_topology_faults(torch, topo_policy):
+    """18. The topology under faults, and capped scoring: topology PPO at
+    bench_topology's width over a world with floors and fault draws with
+    link blackouts; one episode batch of that world on the card against
+    the CPU; phase 15's policy scored by run_topology_in_dynamic_sim with
+    two flows capped, the caps held at every step, the card run's actions
+    replayed open-loop on the CPU (the water-fill against its plain
+    version) and without caps on the card (what the spill moved). K3 held
+    on the training's and the capped scoring's own operands."""
+    from repro_torch.core import (train_ppo, FlowObjective,
+                                  make_flow_objective)
+    from repro_torch.core import topology as topo_mod, fleet as fleet_mod
+    from repro_torch.core.topology import (topology_reset, topology_step,
+                                           _batched_topology)
+    from repro_torch.core.ppo import init_agent, _make_episode_fn
+    from repro_torch.scenarios import (TopologySpec, arrival_schedule,
+                                       sample_topology_batch,
+                                       run_topology_in_dynamic_sim,
+                                       compile_fault_batch)
+    from repro_torch.device import as_f32
+    params = fleet_params("cuda")
+    n_envs, F = TOPO_ENVS, TOPO_FLOWS
+    rounds = TOPO_FAULT_ROUNDS
+
+    def draw(rnd, seed=1):
+        wl = sample_topology_batch(
+            n_envs, F, n_links=TOPO_LINKS, seed=seed * 7919 + rnd,
+            horizon=TOPO_HORIZON, base_tpt=FLEET_TPT, base_bw=FLEET_BW,
+            objective_mix=dict(floor_deadline_frac=TOPO_FLOOR_FRAC),
+            fault_mix=TOPO_FAULT_MIX, device="cuda")
+        return wl.replace(specs=None)
+
+    cfg = topology_config("cuda", episodes=rounds * n_envs, n_envs=n_envs)
+    copies0 = compile_fault_batch.host_copies
+    reset_launches()
+    res = train_ppo(params, cfg, workload=draw(0), resample=draw)
+    torch.cuda.synchronize()
+    train_launches = read_launches()
+    copies = compile_fault_batch.host_copies - copies0
+    got_rounds = res.episodes // n_envs
+    print(f"[topology faults train] {res.episodes} episodes ({got_rounds} "
+          f"rounds of {n_envs} envs x {F} flows over {TOPO_LINKS} links, "
+          f"floors {TOPO_FLOOR_FRAC} of the link per deadline flow, faults "
+          f"{json.dumps(TOPO_FAULT_MIX)}) in {res.wall_s:.3f} s = "
+          f"{res.episodes / res.wall_s:.1f} episodes/s; host copies of the "
+          f"fault compile {copies} ({copies / got_rounds:.2f} a round); "
+          f"launches {json.dumps(train_launches)}")
+    if not np.all(np.isfinite(res.history)):
+        fail("non-finite faulted topology training reward")
+    expected = got_rounds * (cfg.max_steps + 1)
+    if (got_rounds < TOPO_FAULT_ROUNDS
+            or train_launches["contention"] != expected
+            or train_launches["sim_interval"] != expected):
+        fail(f"faulted topology training launched "
+             f"{json.dumps(train_launches)}, expected {expected} of each")
+
+    gaps = {}
+    for seed in (TOPO_AGREE_SEED, TOPO_UPDATE_GAP_SEED):
+        out = {d: topology_episode(torch, d, seed=seed, objectives=True,
+                                   n_envs=n_envs, faults=True)
+               for d in ("cuda", "cpu")}
+        gaps[seed] = (
+            float((out["cuda"][0] - out["cpu"][0]).abs().max()),
+            max(float((out["cuda"][1][n] - out["cpu"][1][n]).abs().max())
+                for n in out["cpu"][1]))
+    err_rew, err_par = gaps[TOPO_AGREE_SEED]
+    upd, leaves, kinks = update_gap(torch, TOPO_UPDATE_GAP_SEED, n_envs)
+    print(f"[topology faults agree] card vs CPU, one episode batch of this "
+          f"world ({n_envs} envs x {F} flows over {TOPO_LINKS} links, "
+          f"floors and blackouts), seed {TOPO_AGREE_SEED}: rewards "
+          f"{err_rew:.3g}, params {err_par:.3g} (limits 1e-4); seed "
+          f"{TOPO_UPDATE_GAP_SEED}: rewards "
+          f"{gaps[TOPO_UPDATE_GAP_SEED][0]:.3g} (limit 1e-4), params "
+          f"{gaps[TOPO_UPDATE_GAP_SEED][1]:.3g} in float32 (not held)")
+    for name, per_epoch in upd.items():
+        print(f"[topology faults update] seed {TOPO_UPDATE_GAP_SEED}'s "
+              f"update alone from one batch, {name}: max parameter gap "
+              f"after each epoch {['%.3g' % x for x in per_epoch]}")
+    for dev, (n_flip, near) in kinks.items():
+        print(f"[topology faults update] {dev}: {n_flip} ReLU inputs of the "
+              f"first epoch's policy on the other side of 0 in float32 "
+              f"than in float64 (smallest |input| {near})")
+    for r in sorted(leaves, key=lambda r: -r["param_gap"]):
+        print(f"[topology faults update] epoch 0, float32, {r['leaf']}: "
+              f"|g| max {r['abs_g']:.3g}, gradient gap {r['g_gap']:.3g}; "
+              f"largest parameter gap {r['param_gap']:.3g} where g = "
+              f"{r['g'][0]:.3g} (CPU) / {r['g'][1]:.3g} (card), "
+              f"sqrt(v-hat)+eps {r['denom'][0]:.3g} / {r['denom'][1]:.3g}, "
+              f"step / lr {r['step'][0]:.3g} / {r['step'][1]:.3g}")
+    err_f64 = upd["card_vs_cpu_float64"][-1]
+    print(f"[topology faults agree] seed {TOPO_UPDATE_GAP_SEED}'s update "
+          f"in float64, card vs CPU: {err_f64:.3g} (limit "
+          f"{TOPO_UPDATE_F64_LIMIT:.3g})")
+    if not (err_rew <= 1e-4 and err_par <= 1e-4
+            and gaps[TOPO_UPDATE_GAP_SEED][0] <= 1e-4
+            and err_f64 <= TOPO_UPDATE_F64_LIMIT):
+        fail("the card's faulted topology episode disagrees with the CPU's")
+
+    # K3 on one interval of the training world: each env's interval opens
+    # where a blackout or a down window falls
+    for rnd in range(8):
+        raw = draw(rnd)
+        run = raw.compiled()
+        t0 = torch.from_numpy(fault_start_times(
+            raw.faults, ("link_blackout",))).cuda()
+        rng = np.random.default_rng(18)
+        threads = torch.from_numpy(rng.integers(
+            1, 51, (n_envs, F, 3)).astype(np.float32)).cuda()
+        world = dict(graph=run.topology.graph, paths=run.topology.paths,
+                     flows=run.flows, objectives=run.objectives)
+        bufs, _ = topo_mod.topology_interval(
+            params, torch.zeros((n_envs, F, 2), device="cuda"), threads,
+            t0 - 1.0, **world)
+        with Recorder(topo_mod, "contention_rates") as r3, \
+                Recorder(fleet_mod, "sim_interval_batch") as r1:
+            topo_mod.topology_interval(params, bufs, threads, t0, **world)
+        topo_k3, topo_k1 = r3.calls[0][0], r1.calls[0][0]
+        dark_links = (topo_k3[4] == 0.0).all(dim=-1)          # (E, S, L)
+        if bool(dark_links.any()) and bool((topo_k3[5] > 0.0).any()):
+            break
+    else:
+        fail("no fault draw gave an interval with a dark link and floors")
+    print(f"[topology faults kernels] training operands from round {rnd}'s "
+          f"draw: {int(dark_links.sum())} dark (env, substep, link) "
+          f"entries, {int((topo_k3[5] > 0).sum())} flows with a floor, "
+          f"{int((1.0 - topo_k3[1]).sum())} down (env, substep, flow) "
+          f"entries")
+
+    # capped scoring: phase 15's policy on one bench_topology family, two
+    # of the four flows capped at a quarter of the link's base bandwidth
+    tspec = TopologySpec(family=TOPO_CAP_FAMILY, seed=11, n_links=TOPO_LINKS,
+                         n_flows=F, horizon=TOPO_HORIZON, base_tpt=FLEET_TPT,
+                         base_bw=FLEET_BW)
+    flows = arrival_schedule("staggered_start", F, horizon=TOPO_HORIZON,
+                             seed=11, device="cuda")
+    cap = TOPO_CAP_FRAC * min(FLEET_BW)
+    caps = [cap if f in TOPO_CAPPED else float("inf") for f in range(F)]
+    objs = make_flow_objective(rate_cap=caps, device="cuda")
+    reset_launches()
+    with Recorder(topo_mod, "contention_rates") as rec:
+        ev = run_topology_in_dynamic_sim(tspec, flows, params, topo_policy,
+                                         seed=7, label="capped",
+                                         objectives=objs)
+    torch.cuda.synchronize()
+    capped_launches = read_launches()
+    steps = ev.goodput.shape[0]
+    if not (np.all(np.isfinite(ev.goodput)) and np.isfinite(ev.utilization)):
+        fail("non-finite capped topology scoring")
+    over = max(float(ev.goodput[:, f].max()) - cap for f in TOPO_CAPPED)
+    print(f"[topology capped] {TOPO_CAP_FAMILY}, flows {list(TOPO_CAPPED)} "
+          f"capped at {cap} Gbit/s: utilization {ev.utilization:.4f} Jain "
+          f"{ev.jain:.4f}; the capped flows' largest goodput less the cap "
+          f"{over:.3g} (limit 1e-6); launches {json.dumps(capped_launches)} "
+          f"(expected contention 1 + 2 x {steps}, sim_interval 1 + {steps})")
+    if over > 1e-6:
+        fail("a capped flow's goodput exceeded its cap")
+    if (capped_launches["contention"] != 1 + 2 * steps
+            or capped_launches["sim_interval"] != 1 + steps):
+        fail("capped scoring launched the kernels an unexpected number of "
+             "times")
+
+    # the card run's actions replayed open-loop: on the CPU through the
+    # plain water-fill, and on the card without caps
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)   # run_topology_in_dynamic_sim's initial threads
+    threads0 = torch.randint(1, 16, (1, F, 3), generator=gen, device="cuda")
+
+    def replay(dev, objectives):
+        p = fleet_params(dev)
+        graph, paths = _batched_topology(tspec.topology(device=dev))
+        world = dict(graph=graph, paths=paths,
+                     flows=fleet_mod._map_schedule(
+                         lambda x: as_f32(x, dev)[None], flows),
+                     objectives=None if objectives is None else FlowObjective(
+                         *(as_f32(x, dev)[None] for x in objectives)))
+        st = topology_reset(p, 1, F, threads=threads0.to(dev), **world)
+        good = []
+        for k in range(steps):
+            act = torch.from_numpy(ev.threads[k].astype(np.float32))[None]
+            st, _, _ = topology_step(p, st, act.to(dev), **world)
+            good.append(st.throughputs[0, :, 2].cpu().numpy())
+        return np.asarray(good)
+
+    cpu_good = replay("cpu", objs)
+    err = float(np.abs(cpu_good - ev.goodput).max())
+    free = replay("cuda", None)
+    others = [f for f in range(F) if f not in TOPO_CAPPED]
+    gain = ev.goodput[:, others].sum(1) - free[:, others].sum(1)
+    spilled = int((gain > 1e-6).sum())
+    print(f"[topology capped] open-loop replay of the card's actions on the "
+          f"CPU (plain water-fill): goodput max abs err {err:.3g} over "
+          f"{steps} steps (limit 1e-5); the uncapped flows' total goodput "
+          f"above the same actions without caps at {spilled} of {steps} "
+          f"steps (largest gain {float(gain.max()):.4g} Gbit/s): the spill "
+          f"rounds {'moved' if spilled else 'did NOT move'} bandwidth")
+    if not err <= 1e-5:
+        fail("the capped water-fill on the card disagrees with its plain "
+             "version on the CPU")
+
+    # the capped run's reset and steps (S = 50) and its achievable solves
+    # (S = 1, every thread count at n_max), each held on the call with the
+    # most flows active; both run with finite caps
+    steps_k3 = [c[0] for c in rec.calls if c[0][1].shape[1] > 1]
+    ach_k3 = [c[0] for c in rec.calls if c[0][1].shape[1] == 1]
+    if len(steps_k3) != 1 + steps or len(ach_k3) != steps:
+        fail(f"capped scoring made {len(steps_k3)} solves of 50 substeps "
+             f"and {len(ach_k3)} of one, expected {1 + steps} and {steps}")
+    busiest = lambda calls: max(calls, key=lambda a: float(a[1].sum()))
+    rows = {}
+    for tag, args, n in (
+            ("topology_faults", topo_k3, train_launches["contention"]),
+            ("topology_capped", busiest(steps_k3), len(steps_k3)),
+            ("topology_capped_achievable", busiest(ach_k3), len(ach_k3)),
+            ("topology_all_down", all_down(topo_k3), None)):
+        rows[tag] = contention_check(torch, tag, args, F)
+        rows[tag]["launches"] = n
+    k1_row = sim_check(torch, "topology_faults", *topo_k1)
+    k1_row["launches"] = train_launches["sim_interval"]
+
+    fn = _make_episode_fn(params, cfg, randomize_t0=True)
+    state = init_agent(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    wl0 = draw(0)
+
+    def one_round():
+        run = wl0.compiled()
+        return fn(state, None, gen, flows=run.flows,
+                  objectives=run.objectives, topology=run.topology)
+
+    prof = profile_round(torch, one_round,
+                         ("contention_kernel", "sim_interval_kernel"))
+    print(f"[topology faults profile] n_envs={n_envs} x {F} flows over "
+          f"{TOPO_LINKS} links, floors and faults, the fault compile "
+          f"included: " + json.dumps(prof))
+    return dict(res=res, train_launches=train_launches,
+                capped_launches=capped_launches, k3=rows,
+                k1={"topology_faults": k1_row}, profile=prof,
+                spilled=spilled, replay_err=err,
+                copies_per_round=copies / got_rounds)
 
 
 def main():
@@ -1977,6 +3059,15 @@ def main():
     # --- 15. topology: train -> evaluate -> MultiLink control, K3 at F rounds
     tp = phase_topology(torch, fl["policy"])
     lap(15)
+    # --- 16. faults: fault-randomized training -> eval_world -> live replay --
+    ft = phase_faults(torch)
+    lap(16)
+    # --- 17. online: frozen policy + residual head on a held-out collapse ----
+    on = phase_online(torch)
+    lap(17)
+    # --- 18. topology under faults and floors; capped scoring --------------
+    tpf = phase_topology_faults(torch, tp["policy"])
+    lap(18)
     print(f"[wall] per phase s {json.dumps(walls)}; total "
           f"{sum(walls.values()):.2f} s")
     print(f"[profiler] device_ms windows: {PROFILER_WINDOWS['calls']} "
@@ -2004,6 +3095,20 @@ def main():
     kernels[0]["launches_fleet"] = fl["train_launches"]["sim_interval"]
     kernels[0]["launches_scenarios"] = sc["train_launches"]["sim_interval"]
     kernels[0]["launches_topology"] = tp["train_launches"]["sim_interval"]
+    kernels[0]["launches_faults"] = ft["train_launches"]["sim_interval"]
+    kernels[0]["launches_faults_frozen"] = (
+        ft["frozen_launches"]["sim_interval"])
+    kernels[0]["launches_faults_eval"] = ft["eval_launches"]["sim_interval"]
+    kernels[0]["launches_online"] = on["train_launches"]["sim_interval"]
+    kernels[0]["launches_online_eval"] = on["eval_launches"]["sim_interval"]
+    kernels[0]["launches_topology_faults"] = (
+        tpf["train_launches"]["sim_interval"])
+    kernels[0]["launches_topology_capped"] = (
+        tpf["capped_launches"]["sim_interval"])
+    for name, r in {**ft["k1"], **tpf["k1"]}.items():
+        kernels[0][f"at_{name}"] = {k: r[k] for k in (
+            "E", "S", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "bound_terms", "launches")}
     row = k3["fleet"]
     kernels.append({
         "name": "contention", "route": "cuda",
@@ -2011,7 +3116,9 @@ def main():
         "replaces": "src/repro/kernels/contention/kernel.py:37",
         "launches": fl["train_launches"]["contention"],
         "max_abs_err": max(r["max_abs_err"]
-                           for r in [*k3.values(), *tp["k3"].values()]),
+                           for r in [*k3.values(), *tp["k3"].values(),
+                                     *ft["k3"].values(),
+                                     *tpf["k3"].values()]),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": None, "E": row["E"], "S": row["S"], "F": row["F"],
@@ -2019,8 +3126,14 @@ def main():
         "launches_eval": fl["eval_launches"]["contention"],
         "launches_topology": tp["train_launches"]["contention"],
         "launches_topology_eval": tp["eval_launches"]["contention"],
+        "launches_faults": ft["train_launches"]["contention"],
+        "launches_faults_eval": ft["eval_launches"]["contention"],
+        "launches_online": on["train_launches"]["contention"],
+        "launches_online_eval": on["eval_launches"]["contention"],
+        "launches_topology_faults": tpf["train_launches"]["contention"],
+        "launches_topology_capped": tpf["capped_launches"]["contention"],
     })
-    for name, r in {**k3, **tp["k3"]}.items():
+    for name, r in {**k3, **tp["k3"], **ft["k3"], **tpf["k3"]}.items():
         if name != "fleet":
             kernels[-1][f"at_{name}"] = {
                 k: r[k] for k in ("E", "S", "F", "L", "rounds", "objectives",

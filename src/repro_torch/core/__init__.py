@@ -19,17 +19,20 @@ multi-flow fleet and the multi-link topology.
                  water-fill rounds in the contention kernel), min over a
                  flow's links, routes that change at a route bin
   workload.py    the per-round training bundle (tables, flows, objectives,
-                 topology)
+                 topology, per-env fault schedules compiled by compiled())
   ppo.py         Algorithm 2: PPO on the batched simulator, single flow or
                  one shared policy over a fleet or a topology
   exploration.py random-threads logging phase -> B_i, TPT_i, b, n_i*, R_max
   marlin.py      baseline: 3 independent single-variable gradient-descent
                  optimizers (a copy)
   globus.py      baseline: static configuration (a copy)
+  online.py      hybrid offline/online adaptation over the frozen policy:
+                 replay buffer, per-stage residual bandit head, safety
+                 rails (NumPy; a copy of the reference module)
   controller.py  production phase (§IV-F): AutoMDTController over one
                  live engine, FleetController over N engines on a
                  SharedLink, TopologyController over N engines on a
-                 MultiLink
+                 MultiLink; each takes online=OnlineConfig(...)
 """
 
 from repro_torch.core.utility import (utility, stage_utility, r_max,
@@ -77,3 +80,6 @@ from repro_torch.core.marlin import MarlinOptimizer
 from repro_torch.core.globus import GlobusController
 from repro_torch.core.controller import (AutoMDTController, FleetPolicy,
                                          FleetController, TopologyController)
+from repro_torch.core.online import (OnlineConfig, OnlineAdapter,
+                                     ReplayBuffer, ResidualBandit,
+                                     OnlineFleetPolicy, realized_reward)

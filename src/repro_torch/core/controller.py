@@ -30,8 +30,14 @@ block (``objective_features_np``) computed as ``fleet_observe`` computes
 them, a heartbeat health check masking stalled flows, and one act
 dispatch per control interval. ``TopologyController`` steers N engines
 whose stages traverse a ``MultiLink`` and appends the topology block
-(``core.topology.topology_features``, the sim's own definition). Online
-adaptation belongs to a later slice of the port.
+(``core.topology.topology_features``, the sim's own definition).
+
+``online=OnlineConfig(...)`` puts the online adaptation layer
+(``core.online``: replay buffer, residual bandit head, safety rails) over
+the frozen policy in either controller: each step settles the previous
+interval's decision against the reward the new telemetry realized, then
+post-adjusts the frozen action. ``online=None`` runs the frozen-policy
+program unchanged.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ import torch
 from repro_torch.core import networks as nets
 from repro_torch.core.fleet import (FlowObjective, objective_features_np,
                                     default_objectives, _host)
+from repro_torch.core.online import OnlineAdapter, OnlineConfig
 from repro_torch.core.simulator import ObservationSpec, DEFAULT_OBS, TOPO_DIM
 from repro_torch.core.topology import topology_features
 from repro_torch.device import resolve_device
@@ -124,12 +131,9 @@ class AutoMDTController:
     def __init__(self, policy_params, *, n_max=100, bw_ref=None,
                  deterministic=False, seed=0,
                  obs_spec: ObservationSpec = DEFAULT_OBS, interval=1.0,
-                 policy="mlp", online=None, device=None):
+                 policy="mlp", online: OnlineConfig = None, device=None):
         if policy not in ("mlp", "stacked", "gru"):
             raise ValueError(f"unknown policy {policy!r}")
-        if online is not None:
-            raise NotImplementedError("online adaptation lands with the "
-                                      "faults-and-online slice of the port")
         self.params = policy_params
         self.n_max = n_max
         self.bw_ref = bw_ref  # normalization reference (exploration B max)
@@ -144,6 +148,9 @@ class AutoMDTController:
                                    deterministic=deterministic, seed=seed,
                                    obs_spec=obs_spec, policy=policy,
                                    device=device)
+        # the online adaptation layer: None runs the frozen-policy program
+        self._online = (None if online is None else
+                        OnlineAdapter(online, n_flows=1, n_max=n_max))
 
     @property
     def n_dispatch(self):
@@ -162,11 +169,23 @@ class AutoMDTController:
         window, GRU carry)."""
         self._frames.reset()
         self._policy.reset()
+        if self._online is not None:
+            self._online.reset()
 
     def step(self, obs: dict):
         """obs dict -> next concurrency tuple (ints)."""
-        vec = self._obs_vector(obs)
-        return tuple(self._policy._action(vec[None])[0].tolist())
+        frame = self._frame_vector(obs)
+        if self._online is not None:
+            # settle the previous interval's decision: the reward its
+            # action realized is in THIS observation's telemetry
+            self._online.observe_outcome(
+                np.asarray(obs["throughputs"], float)[None],
+                np.asarray(obs["threads"], float)[None])
+        vec = self._policy._window(frame[None])[0]
+        n = self._policy._action(vec[None])[0]
+        if self._online is not None:
+            n = self._online.adjust(frame[None], n[None])[0]
+        return tuple(n.tolist())
 
     def run(self, engine, *, total_bytes=None, interval=1.0, max_steps=None,
             on_step=None):
@@ -295,10 +314,7 @@ class FleetController:
                  deterministic=True, seed=0,
                  obs_spec: ObservationSpec = DEFAULT_OBS, interval=1.0,
                  policy="mlp", objectives: FlowObjective = None,
-                 online=None, device=None):
-        if online is not None:
-            raise NotImplementedError("online adaptation lands with the "
-                                      "faults-and-online slice of the port")
+                 online: OnlineConfig = None, device=None):
         if obs_spec.topology and not self._topology_block:
             raise NotImplementedError("FleetController emits no topology "
                                       "features: use TopologyController")
@@ -317,10 +333,17 @@ class FleetController:
                                         deterministic=deterministic,
                                         seed=seed, obs_spec=obs_spec,
                                         policy=policy, device=device)
+        # the online adaptation layer: None runs the frozen-policy program;
+        # the realized reward rides the objective weights when given
+        self._online = (None if online is None else OnlineAdapter(
+            online, n_flows=n_flows, n_max=n_max,
+            weights=None if objectives is None else self.objectives.weight))
 
     def reset(self):
         self._frames.reset()
         self.fleet_policy.reset()
+        if self._online is not None:
+            self._online.reset()
 
     def _frame_width(self):
         """Frame dims this class emits (the topology block is the
@@ -391,7 +414,16 @@ class FleetController:
         frames = self.frames_arrays(obs, active, t=t, delivered=delivered)
         if frames.shape[0] == 0:
             return np.zeros((0, 3), int)
-        return self.fleet_policy.act(frames)
+        if self._online is not None:
+            # settle the previous interval's decision against the reward
+            # its action realized (this snapshot's telemetry)
+            self._online.observe_outcome(
+                np.asarray(obs["throughputs"], float),
+                np.asarray(obs["threads"], float), active)
+        acts = self.fleet_policy.act(frames)
+        if self._online is not None:
+            acts = self._online.adjust(frames, acts, active)
+        return acts
 
     @staticmethod
     def _settle_sleep(seconds, engines, settled):

@@ -29,8 +29,11 @@ gathers that compact set (ascending flow order, empty slots filled with F),
 contends and integrates it, and scatters it back through an F+1-row buffer
 whose last row is dropped — no host sync inside a step.
 
-The fault slice's down windows (``FlowSchedule.down_start/down_end``) are
-not ported yet.
+Liveness faults reach the fleet as edits of these structures
+(``repro_torch.scenarios.faults``): a kill with a restart becomes a
+``FlowSchedule`` down window [down_start, down_end) in which the flow is
+inactive, a kill without one truncates ``t_end``, and stage hangs zero
+table bins.
 """
 
 from __future__ import annotations
@@ -62,23 +65,50 @@ def _host(x):
 class FlowSchedule(NamedTuple):
     """Per-flow activity windows: flow ``f`` is active on
     ``[t_start[f], t_end[f])`` of the sim clock; (F,) for one fleet,
-    (E, F) for a batch."""
+    (E, F) for a batch.
+
+    ``down_start``/``down_end`` are the optional liveness-fault fields:
+    flow ``f`` is forced inactive on ``[down_start[f], down_end[f])``, one
+    kill -> restart outage (compiled from a FaultSpec by
+    ``repro_torch.scenarios.faults``). None, the default, is the fault-free
+    program; an all-inf window adds two compares that are False
+    everywhere, so it is an exact no-op."""
 
     t_start: torch.Tensor
     t_end: torch.Tensor
+    down_start: torch.Tensor = None
+    down_end: torch.Tensor = None
 
     @property
     def n_flows(self) -> int:
         return self.t_start.shape[-1]
 
 
-def make_flow_schedule(t_start, t_end, *, device=None) -> FlowSchedule:
+def _map_schedule(fn, flows: FlowSchedule) -> FlowSchedule:
+    """``fn`` applied to every field of ``flows`` that is set."""
+    return FlowSchedule(*(None if x is None else fn(x) for x in flows))
+
+
+def make_flow_schedule(t_start, t_end, down_start=None, down_end=None, *,
+                       device=None) -> FlowSchedule:
     t_start = as_f32(t_start, device)
     t_end = as_f32(t_end, t_start.device)
     if t_start.shape != t_end.shape or t_start.ndim != 1:
         raise ValueError(f"flow schedule must be two (F,) arrays: "
                          f"{tuple(t_start.shape)} vs {tuple(t_end.shape)}")
-    return FlowSchedule(t_start=t_start, t_end=t_end)
+    if (down_start is None) != (down_end is None):
+        raise ValueError("pass both down_start and down_end, or neither")
+    if down_start is not None:
+        down_start = as_f32(down_start, t_start.device)
+        down_end = as_f32(down_end, t_start.device)
+        if (down_start.shape != t_start.shape
+                or down_end.shape != t_start.shape):
+            raise ValueError(f"down windows must match the (F,) schedule: "
+                             f"{tuple(down_start.shape)}/"
+                             f"{tuple(down_end.shape)} vs "
+                             f"{tuple(t_start.shape)}")
+    return FlowSchedule(t_start=t_start, t_end=t_end,
+                        down_start=down_start, down_end=down_end)
 
 
 def always_on(n_flows: int, *, device=None) -> FlowSchedule:
@@ -96,25 +126,36 @@ def _always_on_host(n_flows: int) -> FlowSchedule:
 
 
 def _always_on_batch(n_envs, n_flows, device) -> FlowSchedule:
-    flows = always_on(n_flows, device=device)
-    return FlowSchedule(*(x.expand(n_envs, n_flows) for x in flows))
+    return _map_schedule(lambda x: x.expand(n_envs, n_flows),
+                         always_on(n_flows, device=device))
 
 
 def stack_flow_schedules(schedules) -> FlowSchedule:
     """Stack same-F schedules into one batched FlowSchedule (leading env
-    axis)."""
+    axis). Down windows stack too: in a mix of faulted and fault-free
+    schedules the missing windows become all-inf (exact no-ops); all None
+    stays None."""
     schedules = list(schedules)
     sizes = {s.n_flows for s in schedules}
     if len(sizes) != 1:
         raise ValueError(f"cannot stack fleets of different sizes {sizes}")
+    if all(s.down_start is None for s in schedules):
+        down_start = down_end = None
+    else:
+        def _down(s, x):
+            return torch.full_like(s.t_start, INF) if x is None else x
+        down_start = torch.stack([_down(s, s.down_start) for s in schedules])
+        down_end = torch.stack([_down(s, s.down_end) for s in schedules])
     return FlowSchedule(t_start=torch.stack([s.t_start for s in schedules]),
-                        t_end=torch.stack([s.t_end for s in schedules]))
+                        t_end=torch.stack([s.t_end for s in schedules]),
+                        down_start=down_start, down_end=down_end)
 
 
 def active_at(flows: FlowSchedule, t):
     """Float mask of the flows active at sim time ``t``: (F,) flows and a
     scalar ``t`` give (F,); (E, F) flows and ``t`` (E,) give (E, F), and
-    ``t`` (E, S) gives (E, S, F)."""
+    ``t`` (E, S) gives (E, S, F). A flow inside its down window is
+    inactive."""
     t = torch.as_tensor(t, dtype=torch.float32, device=flows.t_start.device)
     lead = flows.t_start.shape[:-1]
     extra = t.ndim - len(lead)
@@ -122,6 +163,9 @@ def active_at(flows: FlowSchedule, t):
     t = t[..., None]
     act = ((t >= flows.t_start.reshape(shape))
            & (t < flows.t_end.reshape(shape)))
+    if flows.down_start is not None:
+        act &= ~((t >= flows.down_start.reshape(shape))
+                 & (t < flows.down_end.reshape(shape)))
     return act.to(torch.float32)
 
 
@@ -174,7 +218,8 @@ def pad_flow_schedule(flows: FlowSchedule, n_to: int) -> FlowSchedule:
         raise ValueError(f"cannot pad {flows.n_flows} flows down to {n_to}")
     if pad == 0:
         return flows
-    return FlowSchedule(*(_pad(x, pad, INF) for x in flows))
+    # a padded flow never runs, so its down window is moot: inf/inf
+    return _map_schedule(lambda x: _pad(x, pad, INF), flows)
 
 
 # per-field fill values for padded / invalid flow objectives: the default
@@ -240,8 +285,8 @@ def _gather_compact(idx, n_flows, threads, flows, objectives):
     safe = torch.clamp_max(idx, n_flows - 1)
     valid = idx < n_flows
     c_threads = torch.where(valid[..., None], _take(threads, safe), 1.0)
-    c_flows = FlowSchedule(*(torch.where(valid, _take(x, safe), INF)
-                             for x in flows))
+    c_flows = _map_schedule(lambda x: torch.where(valid, _take(x, safe),
+                                                  INF), flows)
     c_objs = None if objectives is None else type(objectives)(**{
         f: torch.where(valid, _take(getattr(objectives, f), safe),
                        _OBJECTIVE_FILLS[f])

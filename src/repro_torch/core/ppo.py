@@ -391,6 +391,22 @@ def _per_flow_sequences(x):
     return x.reshape((-1,) + x.shape[2:])
 
 
+def _ppo_epoch(params, batch, opt, cfg: PPOConfig, loss_fn=_loss):
+    """One PPO epoch on ``batch``: the loss's gradients and one AdamW step,
+    computed functionally and copied into ``params`` in place. Returns
+    (opt, loss, {name: gradient})."""
+    named = _named(params)
+    loss, _ = loss_fn(params, batch, cfg)
+    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    new, opt, _ = adamw_update({n: p.detach() for n, p in named.items()},
+                               grads, opt, lr=cfg.lr, weight_decay=0.0,
+                               max_grad_norm=cfg.max_grad_norm)
+    with torch.no_grad():
+        for n, p in named.items():
+            p.copy_(new[n])
+    return opt, loss, grads
+
+
 def _make_episode_fn(env_params, cfg: PPOConfig, *, randomize_t0):
     """One call = n_envs episodes (one batched rollout) + ppo_epochs
     updates. With ``cfg.n_flows > 1`` the rollout is the fleet's, and given
@@ -450,17 +466,8 @@ def _make_episode_fn(env_params, cfg: PPOConfig, *, randomize_t0):
         else:
             batch = (obs.reshape(-1, spec.dim), act.reshape(-1, ACT_DIM),
                      ret.reshape(-1), logp.reshape(-1))
-        named = _named(params)
         for _ in range(cfg.ppo_epochs):
-            loss, _ = loss_fn(params, batch, cfg)
-            grads = torch.autograd.grad(loss, list(named.values()))
-            new, opt, _ = adamw_update(
-                {n: p.detach() for n, p in named.items()},
-                dict(zip(named, grads)), opt, lr=cfg.lr, weight_decay=0.0,
-                max_grad_norm=cfg.max_grad_norm)
-            with torch.no_grad():
-                for n, p in named.items():
-                    p.copy_(new[n])
+            opt, loss, _ = _ppo_epoch(params, batch, opt, cfg, loss_fn)
         return ({"params": params, "opt": opt}, rew.sum(dim=1),
                 loss.detach())
 
@@ -491,7 +498,9 @@ def train_ppo(env_params, cfg: PPOConfig = None, *, workload=None,
     before every episode batch to redraw the distribution; an explicitly
     passed ``workload`` with tables or a topology is honored for round 0,
     resampling starts at round 1. Round 0's workload fixes whether the
-    rollout is the topology's. ``cfg.pad_flows`` pads the fleet (and every
+    rollout is the topology's. A workload's ``faults`` are compiled into
+    its tables, flows and graphs each round, before any padding
+    (``Workload.compiled()``). ``cfg.pad_flows`` pads the fleet (and every
     round's flows, objectives and routes) to ``flow_bucket(cfg.n_flows)``
     never-active, pathless flows."""
     cfg = cfg or PPOConfig()
@@ -530,7 +539,9 @@ def train_ppo(env_params, cfg: PPOConfig = None, *, workload=None,
         if resample is not None and rnd > 0:
             wl = _drawn(resample, rnd)
         rnd += 1
-        flows, objectives, topology = wl.flows, wl.objectives, wl.topology
+        run = wl.compiled()   # fault edits (no faults: wl itself)
+        flows, objectives, topology = (run.flows, run.objectives,
+                                       run.topology)
         if cfg.n_flows > 1 or topo_mode:
             if flows is None:
                 flows = _always_on_batch(cfg.n_envs, cfg.n_flows,
@@ -542,7 +553,7 @@ def train_ppo(env_params, cfg: PPOConfig = None, *, workload=None,
                     topology = Topology(topology.graph, pad_path_spec(
                         topology.paths, cfg.n_flows))
         train_state, ep_rewards, loss = episode_fn(
-            train_state, wl.tables, gen, flows=flows, objectives=objectives,
+            train_state, run.tables, gen, flows=flows, objectives=objectives,
             topology=topology)
         ep_rewards = ep_rewards.cpu().numpy()
         if by_batch_mean:

@@ -36,12 +36,13 @@ def linear(w, b, x):
 
 def layernorm(scale, bias, x, *, eps=1e-5):
     """LayerNorm over the last axis with the POPULATION variance
-    (``jnp.var``), accumulated in float32."""
-    xf = x.to(torch.float32)
+    (``jnp.var``), accumulated in float32 (float64 for float64 inputs)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(acc)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, keepdim=True, correction=0)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+    return (y * scale.to(acc) + bias.to(acc)).to(x.dtype)
 
 
 def rmsnorm(scale, x, *, eps=1e-6):

@@ -12,11 +12,14 @@
                 static and exploration-only baselines, a shared fleet
                 policy or per-flow baselines under an arrival schedule, and
                 the same over a multi-link topology
+  faults.py     FaultSpec: seeded, JSON-serializable liveness faults
+                (kill_flow / restart_flow / stage_hang / link_blackout)
+                compiled into ScheduleTable / FlowSchedule / LinkGraph
+                edits for the sim, sampled per env for training
   driver.py     ScenarioDriver (live replay of a scenario on a
                 TransferEngine, SharedLink or MultiLink link) and
-                FaultInjector (a copy of the reference module)
-
-Not ported yet: faults.py and the fault_mix draws (fault slice).
+                FaultInjector (live replay of a FaultSpec; a copy of the
+                reference module)
 """
 
 from repro_torch.scenarios.schedule import (ScheduleTable, make_table,
@@ -41,4 +44,10 @@ from repro_torch.scenarios.evaluate import (EvalResult, run_in_dynamic_sim,
                                             FleetEvalResult,
                                             run_topology_in_dynamic_sim,
                                             TopologyEvalResult)
+from repro_torch.scenarios.faults import (FaultEvent, FaultSpec,
+                                          sample_faults, sample_fault_batch,
+                                          compile_fault_batch,
+                                          apply_faults_to_table,
+                                          apply_faults_to_flows,
+                                          apply_faults_to_graph)
 from repro_torch.scenarios.driver import ScenarioDriver, FaultInjector

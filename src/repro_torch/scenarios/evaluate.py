@@ -49,7 +49,7 @@ from repro_torch.core import GlobusController, explore
 from repro_torch.core.controller import AutoMDTController, FleetPolicy
 from repro_torch.core.fleet import (FlowSchedule, FlowObjective, jain_index,
                                     fleet_reset, fleet_step, fleet_observe,
-                                    fleet_achievable)
+                                    fleet_achievable, _map_schedule)
 from repro_torch.core.simulator import (SimParams, make_env_params,
                                         env_reset, env_step, SimEnv)
 from repro_torch.core.topology import (topology_reset, topology_step,
@@ -251,9 +251,12 @@ def run_fleet_in_dynamic_sim(spec, flows: FlowSchedule, params, actor, *,
                              objectives: FlowObjective = None,
                              apply_floors=True):
     """F flows through one scenario under one arrival schedule ``flows``
-    (F,). ``actor`` is a shared ``FleetPolicy`` or a list of F per-flow
-    controllers (``.step(obs_dict)`` or ``.update(throughputs)``). The
-    initial threads are drawn from a ``torch.Generator`` seeded with
+    (F,). ``actor`` is a shared actor — a ``FleetPolicy`` or a wrapper
+    around one such as ``core.online.OnlineFleetPolicy`` — or a list of F
+    per-flow controllers (``.step(obs_dict)`` or ``.update(throughputs)``).
+    A shared actor with ``observe_outcome`` is fed each step's
+    throughputs, threads and activity mask (the online-adaptation hook).
+    The initial threads are drawn from a ``torch.Generator`` seeded with
     ``seed`` on the params' device.
 
     ``objectives``: optional per-flow FlowObjective (F,). Scoring then also
@@ -271,7 +274,7 @@ def run_fleet_in_dynamic_sim(spec, flows: FlowSchedule, params, actor, *,
     steps = steps or int(round(spec.horizon / duration))
     t_start = flows.t_start.cpu().numpy()
     t_end = flows.t_end.cpu().numpy()
-    batch = FlowSchedule(*(as_f32(x, device)[None] for x in flows))
+    batch = _map_schedule(lambda x: as_f32(x, device)[None], flows)
     objs = (None if objectives is None else
             FlowObjective(*(as_f32(x, device)[None] for x in objectives)))
     world_obj = objs if apply_floors else None
@@ -309,7 +312,15 @@ def run_fleet_in_dynamic_sim(spec, flows: FlowSchedule, params, actor, *,
                               flows=batch, table=table,
                               objectives=world_obj)
         t_mid = float(st.t[0]) - 0.5 * duration
+        # the activity windows only, as the reference reads them: a flow
+        # inside a down window still counts as active here (ROADMAP R5)
         active = ((t_mid >= t_start) & (t_mid < t_end)).astype(np.float32)
+        if shared and hasattr(actor, "observe_outcome"):
+            # the reward an action realized lives in the post-step state;
+            # the reference hands the hook a float64 mask
+            actor.observe_outcome(st.throughputs[0].cpu().numpy(),
+                                  st.threads[0].cpu().numpy(),
+                                  active.astype(float))
         g = st.throughputs[0, :, 2].cpu().numpy()
         goodput.append(g)
         threads_hist.append(st.threads[0].cpu().numpy())
@@ -408,7 +419,7 @@ def run_topology_in_dynamic_sim(tspec, flows: FlowSchedule, params, actor, *,
     t_end = flows.t_end.cpu().numpy()
     t_fail = (float(paths.bin_seconds[0])
               if tspec.family == "link_failover" else None)
-    batch = FlowSchedule(*(as_f32(x, device)[None] for x in flows))
+    batch = _map_schedule(lambda x: as_f32(x, device)[None], flows)
     objs = (None if objectives is None else
             FlowObjective(*(as_f32(x, device)[None] for x in objectives)))
     world = dict(flows=batch, graph=graph, paths=paths, objectives=objs)

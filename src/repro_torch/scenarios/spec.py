@@ -4,12 +4,12 @@
 A spec is a small, JSON-serializable description (family + knobs + seed)
 that compiles to a ScheduleTable; a ``TopologySpec`` compiles to a link
 graph and its routes. The samplers draw condition tables, link graphs,
-flow-arrival schedules and per-flow objectives with NumPy, on the same
-streams as the reference (the tables' ``seed``, the graphs'
-``seed + 0x70B0``, the arrivals' ``seed + 0x5EED``, the objectives'
-``seed + 0x0BB1``), so every array is byte-identical to the reference's
-for the same seed; the arrays then go to ``device`` (None: the CUDA
-device) as torch tensors.
+flow-arrival schedules, per-flow objectives and per-env fault schedules
+with NumPy, on the same streams as the reference (the tables' ``seed``,
+the graphs' ``seed + 0x70B0``, the arrivals' ``seed + 0x5EED``, the
+objectives' ``seed + 0x0BB1``, the faults' ``seed + 0xFA17``), so every
+array is byte-identical to the reference's for the same seed; the arrays
+then go to ``device`` (None: the CUDA device) as torch tensors.
 
 File format (``.scenario.json``)::
 
@@ -18,7 +18,6 @@ File format (``.scenario.json``)::
      "base_tpt": [0.2, 0.15, 0.2], "base_bw": [1.0, 1.0, 1.0],
      "params": {"burst_prob": 0.3, "load": 0.7}}
 
-Not ported yet: the ``fault_mix`` draws (the fault slice).
 """
 
 from __future__ import annotations
@@ -37,6 +36,7 @@ from repro_torch.core.topology import (Topology, make_link_graph,
                                        make_path_spec, stack_topologies,
                                        pad_path_spec)
 from repro_torch.core.workload import Workload
+from repro_torch.scenarios.faults import sample_fault_batch
 from repro_torch.scenarios.families import (FAMILIES, ARRIVAL_FAMILIES,
                                             TOPOLOGY_FAMILIES)
 from repro_torch.scenarios.schedule import (ScheduleTable, make_table,
@@ -184,12 +184,12 @@ def sample_fleet_batch(n, n_flows, *, arrival_families=None,
     ``objective_mix`` is given (a kwargs dict, or ``True`` for its
     defaults; None = the default objective for every flow). Each axis has
     its own NumPy stream, so adding one never perturbs the others.
+    ``fault_mix`` draws a per-env fault schedule (a kwargs dict for
+    ``sample_fault_batch``, or ``True`` for its defaults), left UNCOMPILED
+    in ``Workload.faults`` (``Workload.compiled()`` folds them in).
     ``pad_flows=True`` pads the flow axis to ``flow_bucket(n_flows)`` with
     never-active flows. Returns a ``Workload`` with batched (leading env
     axis) tables, flows and objectives on ``device``."""
-    if fault_mix is not None:
-        raise NotImplementedError("sample_fleet_batch(fault_mix=) lands "
-                                  "with the fault slice of the port")
     specs, tables = sample_scenario_batch(
         n, families=families, seed=seed, horizon=horizon,
         bin_seconds=bin_seconds, base_tpt=base_tpt, base_bw=base_bw,
@@ -211,13 +211,18 @@ def sample_fleet_batch(n, n_flows, *, arrival_families=None,
             n_flows, seed=int(orng.integers(0, 2 ** 31 - 1)),
             horizon=horizon, base_bw=base_bw, device=device, **kw)
             for _ in range(n)]
+    faults = None
+    if fault_mix is not None:
+        kw = {} if fault_mix is True else dict(fault_mix)
+        faults = sample_fault_batch(n, n_flows, seed=seed, horizon=horizon,
+                                    **kw)
     flows = stack_flow_schedules(flows)
     objectives = stack_flow_objectives(objectives)
     if pad_flows:
         flows = pad_flow_schedule(flows, flow_bucket(n_flows))
         objectives = pad_flow_objectives(objectives, flow_bucket(n_flows))
     return Workload(tables=tables, flows=flows, objectives=objectives,
-                    specs=specs)
+                    faults=faults, specs=specs)
 
 
 @dataclass
@@ -305,16 +310,14 @@ def sample_topology_batch(n, n_flows, *, n_links=2, families=None,
     routes, arrival schedule, objective set) triples — graphs drawn over
     the topology ``families`` with randomized seeds and per-stage jitter,
     arrivals and objectives drawn as ``sample_fleet_batch`` draws them,
-    each axis on its own NumPy stream (0x70B0 / 0x5EED / 0x0BB1 offsets;
-    the faults' 0xFA17 stream waits for the fault slice, and ``fault_mix``
-    raises).
+    each axis on its own NumPy stream (0x70B0 / 0x5EED / 0x0BB1 / 0xFA17
+    offsets); ``fault_mix`` works as in ``sample_fleet_batch``, with
+    ``n_links`` defaulted into the mix so link blackouts can target every
+    link.
     ``pad_flows=True`` pads the flow axis (schedules, objectives and route
     rows) to ``flow_bucket(n_flows)``. Returns a ``Workload`` with a
     batched (leading env axis) topology, flows and objectives on
     ``device``."""
-    if fault_mix is not None:
-        raise NotImplementedError("sample_topology_batch(fault_mix=) lands "
-                                  "with the fault slice of the port")
     families = list(families or TOPOLOGY_FAMILIES)
     rng = np.random.default_rng(seed + 0x70B0)
     specs = []
@@ -345,6 +348,12 @@ def sample_topology_batch(n, n_flows, *, n_links=2, families=None,
             n_flows, seed=int(orng.integers(0, 2 ** 31 - 1)),
             horizon=horizon, base_bw=base_bw, device=device, **kw)
             for _ in range(n)]
+    faults = None
+    if fault_mix is not None:
+        kw = {} if fault_mix is True else dict(fault_mix)
+        kw.setdefault("n_links", n_links)
+        faults = sample_fault_batch(n, n_flows, seed=seed, horizon=horizon,
+                                    **kw)
     flows = stack_flow_schedules(flows)
     objectives = stack_flow_objectives(objectives)
     if pad_flows:
@@ -354,7 +363,7 @@ def sample_topology_batch(n, n_flows, *, n_links=2, families=None,
                             paths=pad_path_spec(topology.paths,
                                                 flow_bucket(n_flows)))
     return Workload(topology=topology, flows=flows, objectives=objectives,
-                    specs=specs)
+                    faults=faults, specs=specs)
 
 
 def sample_scenario_batch(n, *, families=None, seed=0, horizon=60.0,

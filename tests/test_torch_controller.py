@@ -139,7 +139,20 @@ def test_controller_on_the_card_leaves_a_cpu_policy_on_the_cpu():
     assert ctl.step(recorded_observations(1, 0)[0]) is not None
 
 
-def test_online_adaptation_is_refused():
-    tp = PolicyNet(obs_dim=8)
-    with pytest.raises(NotImplementedError):
-        AutoMDTController(tp, online=object(), device="cpu")
+def test_online_adaptation_is_accepted_and_none_stays_bitwise():
+    """online= builds the adapter; online=None gives bitwise the actions of
+    a controller built without the argument (tests/test_torch_online.py
+    holds the online head against the reference)."""
+    from repro_torch.core.online import OnlineConfig, OnlineAdapter
+    tp = PolicyNet(obs_dim=8, generator=torch.Generator().manual_seed(0))
+    ctl = AutoMDTController(tp, online=OnlineConfig(warmup=1),
+                            device="cpu")
+    assert isinstance(ctl._online, OnlineAdapter)
+    plain = AutoMDTController(tp, n_max=N_MAX, deterministic=True,
+                              device="cpu")
+    none = AutoMDTController(tp, n_max=N_MAX, deterministic=True,
+                             online=None, device="cpu")
+    assert none._online is None
+    for obs in recorded_observations(10, 7):
+        assert none.step(obs) == plain.step(obs)
+    assert 1 <= min(ctl.step(recorded_observations(1, 0)[0]))

@@ -141,7 +141,8 @@ def test_one_flow_is_the_single_flow_simulator():
     _, tp = params()
     tab, _, _ = port_world(w, False)
     one = tf.always_on(1, device="cpu")
-    flows = tf.FlowSchedule(*(x.expand(E, 1) for x in one))
+    flows = tf.FlowSchedule(one.t_start.expand(E, 1),
+                            one.t_end.expand(E, 1))
     bufs, tps = tf.fleet_interval(
         tp, torch.from_numpy(w["buffers"][:, :1]),
         torch.from_numpy(w["threads"][:, :1]), torch.from_numpy(w["t0"]),

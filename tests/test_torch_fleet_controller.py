@@ -97,9 +97,6 @@ def test_frames_and_actions_match_reference(spec, bw_ref, objectives, seed):
 def test_unported_options_are_refused():
     tp = PolicyNet(obs_dim=tsim.FLEET_OBS.dim)
     with pytest.raises(NotImplementedError):
-        FleetController(tp, n_flows=2, obs_spec=tsim.FLEET_OBS,
-                        online=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
         FleetController(tp, n_flows=2, obs_spec=tsim.TOPOLOGY_OBS,
                         device="cpu")
 

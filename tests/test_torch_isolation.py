@@ -36,7 +36,8 @@ COPIES = {"transfer/engine.py": "transfer/engine.py",
           "configs/mamba2_1_3b.py": "configs/mamba2_1_3b.py",
           "configs/registry.py": "configs/registry.py",
           "core/simref.py": "core/simref.py",
-          "scenarios/driver.py": "scenarios/driver.py"}
+          "scenarios/driver.py": "scenarios/driver.py",
+          "core/online.py": "core/online.py"}
 # narrowed copies: the top-level names whose definitions may differ from
 # the original's (checked by test_registry_narrows_the_reference_registry)
 NARROWED = {"configs/registry.py": ("ARCHS", "_module")}

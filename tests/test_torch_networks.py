@@ -104,6 +104,66 @@ def test_layernorm_uses_population_variance():
     _close(got, ref)
 
 
+def test_layernorm_accumulates_in_float32_or_float64():
+    """bf16 and float32 inputs accumulate in float32, float64 inputs in
+    float64: within 1e-13 of the population-variance formula in NumPy
+    float64."""
+    x = _obs(5, 32).astype(np.float64) * 7.0
+    scale = np.linspace(0.5, 1.5, 32)
+    bias = np.linspace(-1, 1, 32)
+    mu = x.mean(-1, keepdims=True)
+    want = ((x - mu) / np.sqrt(((x - mu) ** 2).mean(-1, keepdims=True)
+                               + 1e-5) * scale + bias)
+    got = layernorm(*(torch.from_numpy(a) for a in (scale, bias, x)))
+    assert got.dtype == torch.float64
+    _close(got, want, atol=1e-13)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    sb, bb = torch.from_numpy(scale).float(), torch.from_numpy(bias).float()
+    assert torch.equal(layernorm(sb, bb, xb),
+                       layernorm(sb, bb, xb.float()).to(torch.bfloat16))
+
+
+def test_adamw_float64_moments_run_the_step_in_float64():
+    """float64 moments make the whole step float64: two steps within
+    1e-15 of the reference's formulas in NumPy float64, and within
+    float32 rounding of the float32 step."""
+    rng = np.random.default_rng(7)
+    shapes = {"a.w": (6, 4), "a.b": (4,), "b": ()}
+    p0 = {n: rng.normal(0, 1, s) for n, s in shapes.items()}
+    g = {n: rng.normal(0, 0.5, s) for n, s in shapes.items()}
+    lr, b1, b2, eps, wd, clip = 3e-4, 0.9, 0.95, 1e-8, 0.1, 0.5
+
+    def numpy_steps(p, n_steps):
+        m = {n: np.zeros_like(x) for n, x in p.items()}
+        v = {n: np.zeros_like(x) for n, x in p.items()}
+        norm = np.sqrt(sum((x ** 2).sum() for x in g.values()))
+        k = min(1.0, clip / max(norm, 1e-9))
+        for t in range(1, n_steps + 1):
+            for n in p:
+                gc = g[n] * k
+                m[n] = b1 * m[n] + (1 - b1) * gc
+                v[n] = b2 * v[n] + (1 - b2) * gc ** 2
+                mh, vh = m[n] / (1 - b1 ** t), v[n] / (1 - b2 ** t)
+                p[n] = p[n] - lr * (mh / (np.sqrt(vh) + eps) + wd * p[n])
+        return p
+
+    want = numpy_steps(dict(p0), 2)
+    for dtype, atol in ((torch.float64, 1e-15), (torch.float32, 1e-6)):
+        params = {n: torch.tensor(x, dtype=dtype) for n, x in p0.items()}
+        grads = {n: torch.tensor(x, dtype=dtype) for n, x in g.items()}
+        opt = adamw_init(params)
+        opt = {"m": {n: t.to(dtype) for n, t in opt["m"].items()},
+               "v": {n: t.to(dtype) for n, t in opt["v"].items()},
+               "step": opt["step"]}
+        for _ in range(2):
+            params, opt, _ = adamw_update(params, grads, opt, lr=lr,
+                                          weight_decay=wd,
+                                          max_grad_norm=clip)
+        for n, t in params.items():
+            assert t.dtype == dtype
+            _close(t, want[n], atol=atol)
+
+
 @pytest.mark.parametrize("weight_decay,max_grad_norm", [(0.0, 0.5),
                                                         (0.1, 1e3)])
 def test_one_adamw_update_matches(weight_decay, max_grad_norm):

@@ -193,12 +193,12 @@ def test_unported_regimes_refuse():
     with pytest.raises(NotImplementedError):
         tppo.train_ppo(tenv, tppo.PPOConfig(n_flows=4, device="cpu"),
                        mesh=object())
-    with pytest.raises(NotImplementedError):
-        tppo.Workload(faults=[None])
-    # the fleet and topology axes are ported: such a workload is accepted
+    # the fleet, topology and fault axes are ported: such a workload is
+    # accepted
     wl = tppo.Workload(flows=object(), objectives=object(),
                        topology=object())
     assert wl.faults is None
+    assert not tppo.Workload(faults=[None]).has_faults
 
 
 def test_train_ppo_static_runs_and_counts_episodes():

@@ -67,5 +67,3 @@ def test_arrival_schedules_and_condition_tables_are_byte_identical(family):
 
 def test_holdout_split_and_unported_axes():
     assert tsc.holdout_families(["step"]) == jsc.holdout_families(["step"])
-    with pytest.raises(NotImplementedError):
-        tsc.sample_fleet_batch(2, 3, fault_mix=True, device="cpu")

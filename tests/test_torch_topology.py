@@ -539,7 +539,7 @@ def test_cuda_topology_solve_matches_plain_version():
     tp = tsim.make_env_params(tpt=TPT, bw=BW, cap=CAP, n_max=50,
                               device="cuda")
     tab, graph, paths, flows, objs = _one_link(1, True)
-    to = lambda x: type(x)(*(y.cuda() for y in x))
+    to = lambda x: type(x)(*(None if y is None else y.cuda() for y in x))
     threads = c(rng.integers(1, 30, (E, F, 3)))
     t0 = c(rng.uniform(0.0, 6.0, E))
     want = tf._solve_fleet_rates(tp, to(tab), threads, to(flows), t0, S,

@@ -165,8 +165,6 @@ def test_topology_spec_arrays_compile_and_json(family):
 
 
 def test_unported_topology_axes_are_refused():
-    with pytest.raises(NotImplementedError):
-        tsc.sample_topology_batch(2, 3, fault_mix=True, device="cpu")
     with pytest.raises(ValueError):
         tsc.TopologySpec(family="no_such_family")
 
