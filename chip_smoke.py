@@ -111,6 +111,15 @@ port's entry points:
                 the card run's actions replayed on the CPU through the
                 plain water-fill and on the card without caps; K3 held on
                 the training's and the capped scoring's own operands
+ 19. topology scale-out: the compact-active-set path (max_active < F) at
+                phase 9's 4096 Poisson flows over 3 links, topology_step
+                dense and compact without and with floors and caps (ms per
+                step, agreement at phase 9's limits); K3 and K1 held on the
+                compact operands the path gave them, K3's capped solve
+                (A rounds) and the dense capped one (F rounds) against the
+                sorted water-fill's fixed point, with and without the
+                rounds timed; one compact topology PPO episode batch (4
+                envs x 64 flows, max_active 16) against the CPU, profiled
 
 It prints each phase's wall time, its findings on earlier lines, one JSON
 line with every kernel's numbers, the nvidia-smi line, and ends with the
@@ -268,6 +277,22 @@ TOPO_FAULT_MIX = dict(FAULT_MIX, blackout_prob=0.5)
 TOPO_CAP_FAMILY = "cross_traffic"
 TOPO_CAP_FRAC = 0.25
 TOPO_CAPPED = (0, 2)
+# phase 19: the topology's compact-active-set path at phase 9's scale-out
+# (SCALE_FLOWS Poisson arrivals, seed 7, hold_frac 0.01, E = 1) over
+# TOPO_LINKS links scaled from the fleet's schedule (tpt x1, x0.8, x0.6;
+# bw x1, x1.2, x1.4); with objectives, TOPO_SCALE_CAPPED of the flows get a
+# floor and a finite cap below a fair share of a link at the arrivals' peak
+# concurrency, so K3's rounds move bandwidth. Then one topology PPO episode
+# batch of TOPO_COMPACT_ENVS envs x TOPO_COMPACT_FLOWS Poisson flows
+# (hold_frac TOPO_COMPACT_HOLD) with max_active = TOPO_COMPACT_ACTIVE.
+TOPO_SCALE_TPT = (1.0, 0.8, 0.6)
+TOPO_SCALE_BW = (1.0, 1.2, 1.4)
+TOPO_SCALE_CAPPED = 0.25
+TOPO_COMPACT_ENVS = 4
+TOPO_COMPACT_FLOWS = 64
+TOPO_COMPACT_ACTIVE = 16
+TOPO_COMPACT_HOLD = 0.05
+TOPO_COMPACT_SEED = 4
 # the episode batches phase 18 holds on the card against the CPU. Seed 3's
 # whole episode is held in float32. Seed 9's float32 update sits on a ReLU
 # kink (a block-2 LayerNorm output within float32 rounding of 0, on whose
@@ -706,11 +731,12 @@ def contention_row(torch, name, shape, seed, threads_at=None):
     return contention_check(torch, name, args, rounds)
 
 
-def contention_check(torch, name, args, rounds):
+def contention_check(torch, name, args, rounds, samples=20):
     """K3 on the operands ``args`` (threads, act, onpath, tpt, bw, floor,
     cap) on the card: within 2e-5 of its plain version on the same
     operands and the same bits from two launches, with kernel (CUDA
-    events), device (profiler), plain and bound times."""
+    events, median of ``samples``), device (profiler), plain and bound
+    times."""
     from repro_torch.kernels.contention import ops
     from repro_torch.kernels.contention.ref import contention_rates_reference
     E, S, F = args[1].shape
@@ -730,7 +756,9 @@ def contention_check(torch, name, args, rounds):
     empty0 = PROFILER_WINDOWS["empty"]
     dev_ms = device_ms(torch, kern, "contention_kernel")
     row = dict(E=E, S=S, F=F, L=L, rounds=rounds, objectives=obj,
-               max_abs_err=err, ms=time_ms(torch, kern), device_ms=dev_ms,
+               max_abs_err=err, ms=time_ms(torch, kern, samples=samples,
+                                           inner=min(samples, 20)),
+               device_ms=dev_ms,
                device_windows_empty=PROFILER_WINDOWS["empty"] - empty0,
                plain_ms=time_ms(torch, plain, samples=5, inner=3, warmup=1),
                bound_ms=b_ms, bound_by=b_by, bound_terms=terms,
@@ -2834,6 +2862,270 @@ def phase_topology_faults(torch, topo_policy):
                 copies_per_round=copies / got_rounds)
 
 
+def topology_scale_world(torch, F):
+    """Phase 19's world on the card, E = 1: phase 9's arrivals at F flows,
+    TOPO_LINKS constant links scaled from the fleet's schedule, static
+    routes from a NumPy seed with every flow on at least one link, and the
+    capped objectives (``TOPO_SCALE_CAPPED`` of the flows with a floor and a
+    finite cap below a fair share at the peak concurrency). Returns (world
+    keywords without objectives, the capped objectives, the peak
+    concurrency)."""
+    from repro_torch.core.fleet import (FlowSchedule, make_flow_objective,
+                                        max_concurrent_flows)
+    from repro_torch.core.topology import LinkGraph, PathSpec
+    from repro_torch.scenarios.families import poisson_arrivals
+    ts, te = poisson_arrivals(F, FLEET_HORIZON, seed=7, hold_frac=0.01)
+    peak = max_concurrent_flows(FlowSchedule(ts, te), window=1.0)
+    L = TOPO_LINKS
+    rng = np.random.default_rng(19)
+    onpath = rng.integers(0, 2, (F, L))
+    onpath[np.arange(F), rng.integers(0, L, F)] = 1
+    capped = rng.random(F) < TOPO_SCALE_CAPPED
+    floor = np.where(capped, rng.uniform(0.0, 0.1, F) / peak, 0.0)
+    cap = np.where(capped, rng.uniform(0.1, 0.5, F) / peak, np.inf)
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32))[None].cuda()
+    scale = lambda base, k: (np.asarray(base)[None, None]
+                             * np.asarray(k)[:L, None, None])   # (L, 1, 3)
+    world = dict(
+        graph=LinkGraph(to(scale(FLEET_TPT, TOPO_SCALE_TPT)),
+                        to(scale(FLEET_BW, TOPO_SCALE_BW)),
+                        to(FLEET_HORIZON)),
+        paths=PathSpec(to(onpath[None]), to(np.inf)),
+        flows=FlowSchedule(to(ts), to(te)))
+    objs = make_flow_objective(rate_floor=floor, rate_cap=cap, device="cuda")
+    return world, type(objs)(*(x[None] for x in objs)), peak
+
+
+def compact_topology_episode(torch, dev, *, seed):
+    """One topology episode batch (rollout + updates) on the compact path:
+    TOPO_COMPACT_ENVS envs x TOPO_COMPACT_FLOWS Poisson flows over
+    TOPO_LINKS links, objectives with floors and a quarter of the flows
+    capped, ``max_active = TOPO_COMPACT_ACTIVE``, from explicit draws made
+    with NumPy; the workload drawn on ``dev``. Returns (rewards,
+    {name: param}, the episode fn and its inputs for a profile)."""
+    from repro_torch.core.fleet import (stack_flow_schedules,
+                                        max_concurrent_flows)
+    from repro_torch.core.ppo import init_agent, _make_episode_fn
+    from repro_torch.scenarios import (sample_topology_batch,
+                                       arrival_schedule)
+    from repro_torch.device import as_f32
+    n, F = TOPO_COMPACT_ENVS, TOPO_COMPACT_FLOWS
+    cfg = dataclasses.replace(
+        topology_config(dev, episodes=n, n_envs=n, seed=seed), n_flows=F,
+        max_active=TOPO_COMPACT_ACTIVE)
+    wl = sample_topology_batch(
+        n, F, n_links=TOPO_LINKS, seed=seed, horizon=TOPO_HORIZON,
+        base_tpt=FLEET_TPT, base_bw=FLEET_BW,
+        objective_mix=dict(floor_deadline_frac=TOPO_FLOOR_FRAC / 10),
+        device=dev)
+    flows = stack_flow_schedules([
+        arrival_schedule("poisson_arrivals", F, horizon=TOPO_HORIZON,
+                         seed=seed * 100 + i, hold_frac=TOPO_COMPACT_HOLD,
+                         device=dev) for i in range(n)])
+    if max_concurrent_flows(flows, window=1.0) > TOPO_COMPACT_ACTIVE:
+        fail("the compact PPO batch's arrivals exceed max_active")
+    rng = np.random.default_rng(seed)
+    cap = np.where(rng.random((n, F)) < TOPO_SCALE_CAPPED,
+                   rng.uniform(0.02, 0.2, (n, F)), np.inf)
+    objectives = wl.objectives._replace(rate_cap=as_f32(cap, dev))
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    draws = dict(threads0=to(rng.integers(1, 16, (n, F, 3))),
+                 t0_draw=to(rng.random(n)),
+                 noise=to(rng.normal(size=(cfg.max_steps, n, F, 3))))
+    fn = _make_episode_fn(fleet_params(dev), cfg, randomize_t0=True)
+    inputs = dict(flows=flows, objectives=objectives, topology=wl.topology)
+    state, rew, _ = fn(init_agent(cfg), None, **inputs, **draws)
+    return (rew.cpu(), {k: t.detach().cpu() for k, t in
+                        state["params"].named_parameters()},
+            (fn, init_agent(cfg), inputs))
+
+
+def rounds_to_fixed_point(torch, args, full, rounds):
+    """The fewest water-fill rounds after which K3 on ``args`` gives the
+    bits ``full`` it gives with ``rounds``: a round after the fixed point
+    is an exact no-op, so the count is found by doubling, then bisection."""
+    from repro_torch.kernels.contention import ops
+    same = lambda r: torch.equal(ops.contention_rates(*args, rounds=r), full)
+    hi = 1
+    while hi < rounds and not same(hi):
+        hi *= 2
+    lo, hi = hi // 2, min(hi, rounds)   # same(hi), not same(lo) (lo >= 1)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if same(mid) else (mid, hi)
+    return hi if lo or not same(0) else 0
+
+
+def phase_topology_scale(torch):
+    """19. The topology's compact-active-set path: topology_step at
+    SCALE_FLOWS flows over TOPO_LINKS links, dense and compact, without
+    and with floors and caps (their agreement at phase 9's limits, ms per
+    step); K3 and K1 on the compact operands the path gave them, held
+    against their plain versions and K3's capped solve against the sorted
+    water-fill's fixed point, and K3 at the dense capped shape (F rounds);
+    one compact topology PPO episode batch on the card against the CPU
+    and its profile."""
+    from repro_torch.core import topology as topo_mod, fleet as fleet_mod
+    from repro_torch.core.fleet import flow_bucket, max_concurrent_flows
+    from repro_torch.core.topology import (TopologyState, topology_step,
+                                           _sorted_water_fill)
+    from repro_torch.kernels import build
+    from repro_torch.kernels.contention import ops as k3_ops
+    from repro_torch.kernels.contention.ref import contention_rates_reference
+    F = SCALE_FLOWS
+    params = fleet_params("cuda")
+    world, capped_objs, peak = topology_scale_world(torch, F)
+    A = min(flow_bucket(max_concurrent_flows(world["flows"], window=1.0)), F)
+    zeros = torch.zeros((1, F, 3), device="cuda")
+    state0 = TopologyState(buffers=torch.zeros((1, F, 2), device="cuda"),
+                           threads=torch.full((1, F, 3), 8.0, device="cuda"),
+                           throughputs=zeros,
+                           t=torch.zeros(1, device="cuda"),
+                           prev_throughputs=zeros,
+                           delivered=torch.zeros((1, F), device="cuda"))
+    acts = torch.full((1, F, 3), 8.0, device="cuda")
+
+    def step(st, ma, objs):
+        return topology_step(params, st, acts, objectives=objs,
+                             max_active=ma, **world)
+
+    scale, launches, captured = {}, {}, {}
+    for label, objs in (("plain", None), ("capped", capped_objs)):
+        runs = {}
+        for name, ma in (("dense", None), ("compact", A)):
+            reset_launches()
+            st = state0
+            for _ in range(3):   # warm-up; the clock moves into the arrivals
+                st, _, rew = step(st, ma, objs)
+            first = (st, rew)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SCALE_ITERS):
+                st, _, rew = step(st, ma, objs)
+            torch.cuda.synchronize()
+            runs[name] = ((time.perf_counter() - t0) / SCALE_ITERS * 1e3,
+                          first)
+            launches[(label, name)] = read_launches()
+            with Recorder(topo_mod, "contention_rates") as r3, \
+                    Recorder(fleet_mod, "sim_interval_batch") as r1:
+                step(first[0], ma, objs)
+            captured[(label, name)] = (r3.calls[0], r1.calls[0][0])
+        (d_st, d_rew), (c_st, c_rew) = runs["dense"][1], runs["compact"][1]
+        err_tps = float((d_st.throughputs - c_st.throughputs).abs().max())
+        err_rew = float((d_rew - c_rew).abs().max()
+                        / d_rew.abs().clamp_min(1))
+        d_ms, c_ms = runs["dense"][0], runs["compact"][0]
+        scale[label] = dict(dense_ms=d_ms, compact_ms=c_ms,
+                            err_tps=err_tps, err_rew=err_rew)
+        what = ("no objectives" if objs is None else
+                f"floors and caps on {TOPO_SCALE_CAPPED} of the flows")
+        print(f"[topology scale] topology_step at F={F} over {TOPO_LINKS} "
+              f"links ({what}; peak concurrency {peak}): dense "
+              f"{d_ms:.3f} ms/step, compact A={A} {c_ms:.3f} ms/step = "
+              f"{d_ms / c_ms:.2f}x; dense vs compact throughputs "
+              f"{err_tps:.3g} (limit 2e-5), reward (relative) {err_rew:.3g} "
+              f"(limit 1e-5); launches dense "
+              f"{json.dumps(launches[(label, 'dense')])}, compact "
+              f"{json.dumps(launches[(label, 'compact')])}")
+        if not (err_tps <= 2e-5 and err_rew <= 1e-5):
+            fail(f"the compact topology step ({label}) disagrees with the "
+                 f"dense one")
+        want = 3 + SCALE_ITERS
+        for name in ("dense", "compact"):
+            got = launches[(label, name)]
+            if got["contention"] != want or got["sim_interval"] != want:
+                fail(f"the {name} topology steps ({label}) launched "
+                     f"{json.dumps(got)}, expected {want} of K3 and of K1")
+
+    # K3 and K1 on the operands the path gave them
+    ptxas = [r for r in ptxas_report(build.nvcc_output("contention"))
+             if any(k in r["function"] for k in (
+                 "block<(int)3, (bool)1>", "block<3, true>",
+                 "blockILi3ELb1E"))]
+    k3_rows, k1_rows = {}, {}
+    for tag, key in (("topology_compact", ("plain", "compact")),
+                     ("topology_compact_capped", ("capped", "compact")),
+                     ("topology_dense_capped", ("capped", "dense"))):
+        (args, kw), k1_args = captured[key]
+        rounds = kw["rounds"]
+        # the dense capped solve takes about 0.1 s: fewer timed calls
+        row = contention_check(torch, tag, args, rounds,
+                               samples=3 if key[1] == "dense" else 20)
+        row["launches"] = launches[key]["contention"]
+        if args[5] is not None:
+            got = k3_ops.contention_rates(*args, rounds=rounds)
+            oracle = contention_rates_reference(*args,
+                                                fill=_sorted_water_fill)
+            moved = k3_ops.contention_rates(*args, rounds=0)
+            torch.cuda.synchronize()
+            row["sorted_fill_err"] = float((got - oracle).abs().max())
+            row["rounds_moved"] = float((got - moved).abs().max())
+            row["rounds_to_fixed_point"] = rounds_to_fixed_point(
+                torch, args, got, rounds)
+            row["device_ms_no_rounds"] = device_ms(
+                torch, lambda: k3_ops.contention_rates(*args, rounds=0),
+                "contention_kernel")
+            row["ptxas"] = ptxas
+            print(f"[topology scale] K3 {tag}: against the sorted "
+                  f"water-fill's fixed point {row['sorted_fill_err']:.3g} "
+                  f"(limit 1e-5); the {rounds} rounds moved up to "
+                  f"{row['rounds_moved']:.4g} and reached their fixed "
+                  f"point, bit for bit, after "
+                  f"{row['rounds_to_fixed_point']}; device ms with the rounds "
+                  f"{row['device_ms']}, without {row['device_ms_no_rounds']}"
+                  f"; ptxas {json.dumps(ptxas)}")
+            if not row["sorted_fill_err"] <= 1e-5:
+                fail(f"K3 {tag} misses the sorted water-fill's fixed point")
+            if not row["rounds_moved"] > 1e-6:
+                fail(f"K3 {tag}: the water-fill rounds moved nothing")
+        k3_rows[tag] = row
+        if key == ("capped", "compact"):
+            k1 = sim_check(torch, tag, *k1_args)
+            k1["launches"] = launches[key]["sim_interval"]
+            k1_rows[tag] = k1
+            print(f"[sim_interval] {tag} E={k1['E']} S={k1['S']}: bitwise; "
+                  f"ms={k1['ms']} device_ms={k1['device_ms']} plain_ms="
+                  f"{k1['plain_ms']} bound_ms={k1['bound_ms']:.3g} "
+                  f"({k1['bound_by']})")
+
+    # one compact topology PPO episode batch, card against CPU
+    reset_launches()
+    cuda_out = compact_topology_episode(torch, "cuda",
+                                        seed=TOPO_COMPACT_SEED)
+    torch.cuda.synchronize()
+    ppo_launches = read_launches()
+    cpu_out = compact_topology_episode(torch, "cpu", seed=TOPO_COMPACT_SEED)
+    err_rew = float((cuda_out[0] - cpu_out[0]).abs().max())
+    err_par = max(float((cuda_out[1][n] - cpu_out[1][n]).abs().max())
+                  for n in cpu_out[1])
+    steps = topology_config("cuda", episodes=1, n_envs=1).max_steps
+    print(f"[topology compact agree] card vs CPU, one compact topology "
+          f"episode batch ({TOPO_COMPACT_ENVS} envs x {TOPO_COMPACT_FLOWS} "
+          f"Poisson flows over {TOPO_LINKS} links, floors and caps, "
+          f"max_active={TOPO_COMPACT_ACTIVE}): rewards {err_rew:.3g}, "
+          f"params {err_par:.3g} (limits 1e-4); launches "
+          f"{json.dumps(ppo_launches)} (expected {steps + 1} of K3 and K1)")
+    if not (err_rew <= 1e-4 and err_par <= 1e-4):
+        fail("the card's compact topology episode disagrees with the CPU's")
+    if (ppo_launches["contention"] != steps + 1
+            or ppo_launches["sim_interval"] != steps + 1):
+        fail("the compact topology episode launched the kernels an "
+             "unexpected number of times")
+    fn, state, inputs = cuda_out[2]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    prof = profile_round(torch, lambda: fn(state, None, gen, **inputs),
+                         ("contention_kernel", "sim_interval_kernel"))
+    print(f"[topology compact profile] n_envs={TOPO_COMPACT_ENVS} x "
+          f"{TOPO_COMPACT_FLOWS} flows over {TOPO_LINKS} links, max_active="
+          f"{TOPO_COMPACT_ACTIVE}: " + json.dumps(prof))
+    return dict(A=A, peak=peak, scale=scale,
+                launches={f"{label}_{name}": v
+                          for (label, name), v in launches.items()},
+                ppo_launches=ppo_launches, k3=k3_rows, k1=k1_rows,
+                agree=(err_rew, err_par), profile=prof)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3068,6 +3360,9 @@ def main():
     # --- 18. topology under faults and floors; capped scoring --------------
     tpf = phase_topology_faults(torch, tp["policy"])
     lap(18)
+    # --- 19. topology scale-out: the compact-active-set path ----------------
+    tsc = phase_topology_scale(torch)
+    lap(19)
     print(f"[wall] per phase s {json.dumps(walls)}; total "
           f"{sum(walls.values()):.2f} s")
     print(f"[profiler] device_ms windows: {PROFILER_WINDOWS['calls']} "
@@ -3105,7 +3400,12 @@ def main():
         tpf["train_launches"]["sim_interval"])
     kernels[0]["launches_topology_capped"] = (
         tpf["capped_launches"]["sim_interval"])
-    for name, r in {**ft["k1"], **tpf["k1"]}.items():
+    kernels[0]["launches_topology_compact"] = sum(
+        tsc["launches"][f"{label}_compact"]["sim_interval"]
+        for label in ("plain", "capped"))
+    kernels[0]["launches_topology_compact_ppo"] = (
+        tsc["ppo_launches"]["sim_interval"])
+    for name, r in {**ft["k1"], **tpf["k1"], **tsc["k1"]}.items():
         kernels[0][f"at_{name}"] = {k: r[k] for k in (
             "E", "S", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "bound_terms", "launches")}
@@ -3118,7 +3418,8 @@ def main():
         "max_abs_err": max(r["max_abs_err"]
                            for r in [*k3.values(), *tp["k3"].values(),
                                      *ft["k3"].values(),
-                                     *tpf["k3"].values()]),
+                                     *tpf["k3"].values(),
+                                     *tsc["k3"].values()]),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": None, "E": row["E"], "S": row["S"], "F": row["F"],
@@ -3132,15 +3433,26 @@ def main():
         "launches_online_eval": on["eval_launches"]["contention"],
         "launches_topology_faults": tpf["train_launches"]["contention"],
         "launches_topology_capped": tpf["capped_launches"]["contention"],
+        "launches_topology_compact": sum(
+            tsc["launches"][f"{label}_compact"]["contention"]
+            for label in ("plain", "capped")),
+        "launches_topology_compact_ppo": tsc["ppo_launches"]["contention"],
+        "launches_topology_dense_scale": sum(
+            tsc["launches"][f"{label}_dense"]["contention"]
+            for label in ("plain", "capped")),
     })
-    for name, r in {**k3, **tp["k3"], **ft["k3"], **tpf["k3"]}.items():
+    for name, r in {**k3, **tp["k3"], **ft["k3"], **tpf["k3"],
+                    **tsc["k3"]}.items():
         if name != "fleet":
             kernels[-1][f"at_{name}"] = {
                 k: r[k] for k in ("E", "S", "F", "L", "rounds", "objectives",
                                   "max_abs_err", "ms", "device_ms",
                                   "device_windows_empty", "plain_ms",
                                   "bound_ms", "bound_by", "bound_terms",
-                                  "launches") if k in r}
+                                  "launches", "sorted_fill_err",
+                                  "rounds_moved", "rounds_to_fixed_point",
+                                  "device_ms_no_rounds", "ptxas")
+                if k in r}
     kernels[-1]["ptxas"] = ptxas["contention"]
     row = k4["smollm_bf16"]
     kernels.append({

@@ -30,9 +30,19 @@ every water-fill round is an exact float no-op when the caps are infinite
 (max(x - inf, 0) == 0, min(x, inf) == x, x + share * 0.0 == x), in the
 kernel as in its plain version.
 
-Not ported yet: the compact-active-set path (``max_active < F``: the
-reference's ``_sparse_topology_interval``, ``_sparse_topology_observe``
-and ``_sorted_water_fill``); it raises NotImplementedError.
+``max_active < F`` takes the compact-active-set path, the fleet's gather
+(``core.fleet``) plus the columns of the routing matrix: each interval
+gathers the <= max_active flows whose window intersects it, solves them
+through ONE K3 launch on (E, S, A, L) operands with ``rounds = A`` and
+integrates them through ONE K1 launch on E*A rows, and scatters them back;
+the step scores its reward on the same gather, and the observation builds
+the topology block from it (ungathered rows exactly zero). Against the
+dense path it agrees to float32 reassociation noise in the flow sums
+(1e-6 without finite caps; 1e-5 with caps, where the spill rounds run on
+A flows instead of F). ``_sorted_water_fill`` is the rounds' closed-form
+fixed point, the oracle K3's water-fill is held to where the plain round
+loop is slow (``contention_rates_reference(..., fill=_sorted_water_fill)``);
+no path runs it.
 """
 
 from __future__ import annotations
@@ -45,7 +55,9 @@ from repro_torch.core.fleet import (FleetState, FlowSchedule, FlowObjective,
                                     active_at, _always_on_batch,
                                     _default_objectives_batch,
                                     _integrate_fleet_rates, _fleet_reward,
-                                    fleet_observe)
+                                    fleet_observe, _window_flow_ids, _take,
+                                    _scatter, _gather_compact,
+                                    _sparse_fleet_observe)
 from repro_torch.core.simulator import (SimParams, ObservationSpec,
                                         DEFAULT_OBS)
 from repro_torch.device import as_f32, resolve_device
@@ -206,13 +218,6 @@ def pad_path_spec(paths: PathSpec, n_to: int) -> PathSpec:
                     bin_seconds=paths.bin_seconds)
 
 
-def _refuse_compact(max_active, n_flows):
-    if max_active is not None and max_active < n_flows:
-        raise NotImplementedError(
-            "the topology's compact-active-set path (max_active < F) is not "
-            "ported yet; see ROADMAP.md")
-
-
 # ---------------------------------------------------------------------------
 # The solve and the interval
 # ---------------------------------------------------------------------------
@@ -234,13 +239,49 @@ def _link_conditions(params: SimParams, graph: LinkGraph, t0, substeps: int):
     return ts, graph.tpt[env, link, idx], graph.bw[env, link, idx]
 
 
+def _sorted_water_fill(alloc, headroom, w, lam0):
+    """The closed-form fixed point of the spill rounds, O(A log A) in the
+    flow axis (axis 2 of the (E, S, F, L, 3) operands ``alloc``,
+    ``headroom`` and ``w``; ``lam0`` (E, S, L, 3)): the rounds converge to
+    ``alloc_f = min(headroom_f, w_f * lam)``, ``lam`` the water level at
+    which the redistributed pool is used up (or every cap saturated).
+    Sorting the saturation breakpoints ``headroom_f / w_f`` and prefix
+    summing what they consume gives ``lam`` directly.
+
+    With no finite cap the first spill is exactly 0.0, so ``delta`` is
+    +0.0 and ``min(alloc + w * 0.0, inf) == alloc``: the rounds' exact
+    no-op, bit for bit. With finite caps it reaches the rounds' fixed point
+    up to the order of the sums."""
+    recv = w > 0                                       # only weighted flows
+    h = torch.where(recv, headroom, 0.0)               # ...receive spill
+    pool = alloc.sum(dim=2)                            # (E, S, L, 3)
+    spill0 = torch.clamp_min(alloc - headroom, 0.0).sum(dim=2)
+    r = torch.where(recv, headroom / torch.where(recv, w, 1.0), INF)
+    order = torch.argsort(r, dim=2, stable=True)
+    r_s = torch.gather(r, 2, order)
+    h_s = torch.gather(h, 2, order)
+    w_s = torch.gather(torch.where(recv, w, 0.0), 2, order)
+    w_tot = w_s.sum(dim=2)
+    w_rem = w_tot[:, :, None] - torch.cumsum(w_s, dim=2)  # unsaturated past i
+    # water consumed when the level reaches breakpoint r_i (an uncapped
+    # flow's inf is masked where no weight remains, so inf * 0 is no NaN)
+    cons = (torch.cumsum(h_s, dim=2)
+            + torch.where(w_rem > 0, r_s, 0.0) * w_rem)
+    sat = cons < pool[:, :, None]                      # fully submerged
+    h_sat = torch.where(sat, h_s, 0.0).sum(dim=2)
+    w_unsat = w_tot - torch.where(sat, w_s, 0.0).sum(dim=2)
+    lam = (pool - h_sat) / torch.clamp_min(w_unsat, 1e-9)
+    delta = torch.where(spill0 > 0.0, torch.clamp_min(lam - lam0, 0.0), 0.0)
+    return torch.minimum(alloc + w * delta[:, :, None], headroom)
+
+
 def _solve_topology_rates(params: SimParams, graph: LinkGraph,
                           paths: PathSpec, threads, flows: FlowSchedule, t0,
                           substeps: int, objectives: FlowObjective = None):
     """(E, S, F, 3) per-flow rates over the link graphs through K3: the
     schedule, activity and route gathers here, then the per-link split,
     the F water-fill rounds and the min over each flow's links of every
-    env and substep in one launch."""
+    env and substep in one launch (F is A on the compact path)."""
     ts, tpt, bw = _link_conditions(params, graph, t0, substeps)
     act = active_at(flows, ts)                                  # (E, S, F)
     onpath = routes_at(paths, ts)                               # (E, S, F, L)
@@ -254,6 +295,42 @@ def _solve_topology_rates(params: SimParams, graph: LinkGraph,
                             rounds=threads.shape[1])
 
 
+def _sparse_topology_interval(params: SimParams, graph: LinkGraph,
+                              paths: PathSpec, buffers, threads, t0,
+                              flows: FlowSchedule, substeps, objectives,
+                              max_active: int, return_compact=False):
+    """The compact-active-set path of ``topology_interval``: the fleet's
+    gather of the <= max_active flows whose window intersects this
+    interval, plus the same columns of every route bin's routing matrix;
+    K3 on the compact set (``rounds = A``), K1 on E*A rows, scattered back.
+    Flows outside the window keep their buffers and have throughputs
+    EXACTLY zero. ``return_compact`` also hands back the gather (idx,
+    valid, c_tps, c_threads, c_flows, c_objs) so ``topology_step`` scores
+    the reward on the same compact set."""
+    F = flows.n_flows
+    idx = _window_flow_ids(flows, t0, params.duration, max_active)
+    c_threads, c_flows, c_objs = _gather_compact(idx, F, threads, flows,
+                                                 objectives)
+    safe = torch.clamp_max(idx, F - 1)
+    valid = idx < F
+    onpath = paths.onpath                                       # (E, R, F, L)
+    cols = safe[:, None, :, None].expand(-1, onpath.shape[1], -1,
+                                         onpath.shape[3])
+    c_paths = PathSpec(onpath=torch.where(valid[:, None, :, None],
+                                          torch.gather(onpath, 2, cols), 0.0),
+                       bin_seconds=paths.bin_seconds)
+    c_bufs = torch.where(valid[..., None], _take(buffers, safe), 0.0)
+    rates = _solve_topology_rates(params, graph, c_paths, c_threads, c_flows,
+                                  t0, substeps, c_objs)
+    c_bufs, c_tps = _integrate_fleet_rates(params, c_bufs, rates)
+    new_buffers = _scatter(buffers, idx, c_bufs)
+    tps = _scatter(torch.zeros_like(threads), idx, c_tps)
+    if return_compact:
+        return (new_buffers, tps, idx, valid, c_tps, c_threads, c_flows,
+                c_objs)
+    return new_buffers, tps
+
+
 def topology_interval(params: SimParams, buffers, threads, t0, *,
                       graph: LinkGraph, paths: PathSpec, flows: FlowSchedule,
                       substeps=50, objectives: FlowObjective = None,
@@ -261,9 +338,14 @@ def topology_interval(params: SimParams, buffers, threads, t0, *,
     """Simulate ``duration`` seconds of F flows over each env's link graph
     from sim time ``t0`` (E,): the topology twin of ``fleet_interval`` (the
     same buffer dynamics; only the solve differs). Returns (buffers'
-    (E, F, 2), tps (E, F, 3))."""
-    _refuse_compact(max_active, flows.n_flows)
+    (E, F, 2), tps (E, F, 3)). ``max_active``: optional bound on the flows
+    any one interval touches (the compact path; a caller PROMISE, as in
+    ``fleet_interval``); None or >= F runs the dense solve."""
     t0 = as_f32(t0, buffers.device).expand(buffers.shape[0])
+    if max_active is not None and max_active < flows.n_flows:
+        return _sparse_topology_interval(params, graph, paths, buffers,
+                                         threads, t0, flows, substeps,
+                                         objectives, max_active)
     rates = _solve_topology_rates(params, graph, paths, threads, flows, t0,
                                   substeps, objectives)
     return _integrate_fleet_rates(params, buffers, rates)
@@ -308,6 +390,35 @@ def topology_features(onpath, net_tps, active, link_bw_ref):
     return torch.stack([b_util, path_len, my_share], dim=-1)
 
 
+def _sparse_topology_observe(params: SimParams, state: TopologyState, *,
+                             flows, graph, paths, spec, objectives,
+                             max_active: int):
+    """The compact-active-set path of ``topology_observe``: the fleet's
+    compact observation plus the rows of the routing matrix now feeding
+    ``topology_features`` on the compact set (the per-link loads drop only
+    exact +0.0 terms: an inactive flow adds ``net * 0``). Ungathered rows
+    are EXACTLY zero; gathered rows match the dense path to float32
+    reassociation noise."""
+    F = state.threads.shape[1]
+    base = _sparse_fleet_observe(params, state, flows=flows, spec=spec,
+                                 objectives=objectives,
+                                 bw_ref=graph_peak_bw(graph),
+                                 max_active=max_active)
+    if not spec.topology:
+        return base
+    idx = _window_flow_ids(flows, state.t, params.duration, max_active)
+    safe = torch.clamp_max(idx, F - 1)
+    valid = idx < F
+    _, c_flows, _ = _gather_compact(idx, F, state.threads, flows, None)
+    c_onpath = torch.where(valid[..., None],
+                           _take(routes_at(paths, state.t), safe), 0.0)
+    c_net = torch.where(valid, _take(state.throughputs[..., 1], safe), 0.0)
+    topo = topology_features(c_onpath, c_net, active_at(c_flows, state.t),
+                             link_peak_bw(graph))               # (E, A, 3)
+    full = topo.new_zeros((topo.shape[0], F, topo.shape[-1]))
+    return torch.cat([base, _scatter(full, idx, topo)], dim=-1)
+
+
 def topology_observe(params: SimParams, state: TopologyState, *,
                      flows: FlowSchedule, graph: LinkGraph, paths: PathSpec,
                      spec: ObservationSpec = DEFAULT_OBS,
@@ -316,8 +427,13 @@ def topology_observe(params: SimParams, state: TopologyState, *,
     """(E, F, spec.frame_dim) observations: the fleet observation
     normalized by each graph's peak bandwidth, extended (spec.topology)
     with the ``topology_features`` block. At one link a topology-blind spec
-    is ``fleet_observe`` bit for bit."""
-    _refuse_compact(max_active, state.threads.shape[1])
+    is ``fleet_observe`` bit for bit. ``max_active``: the compact path
+    (ungathered rows exactly zero)."""
+    if max_active is not None and max_active < state.threads.shape[1]:
+        return _sparse_topology_observe(params, state, flows=flows,
+                                        graph=graph, paths=paths, spec=spec,
+                                        objectives=objectives,
+                                        max_active=max_active)
     base = fleet_observe(params, state, flows=flows, spec=spec,
                          objectives=objectives, bw_ref=graph_peak_bw(graph))
     if not spec.topology:
@@ -366,30 +482,52 @@ def topology_step(params: SimParams, state: TopologyState, actions, *,
     """actions (E, F, 3) -> round (half to even) -> clamp [1, n_max]; one
     ``duration``-second interval over the graphs. Returns (state', obs
     (E, F, frame_dim), reward (E,)); the reward is the shared fleet
-    objective normalized by each graph's peak."""
+    objective normalized by each graph's peak. ``max_active``: the compact
+    path, whose reward is scored on the interval's gather."""
     E, F = state.threads.shape[:2]
-    _refuse_compact(max_active, F)
     if flows is None:
         flows = _always_on_batch(E, F, state.threads.device)
     threads = torch.clamp(torch.round(actions), min=1.0)
     threads = torch.minimum(threads, params.n_max)
-    buffers, tps = topology_interval(params, state.buffers, threads, state.t,
-                                     graph=graph, paths=paths, flows=flows,
-                                     substeps=substeps, objectives=objectives)
+    bw_ref = graph_peak_bw(graph)
+    t_mid = state.t + 0.5 * params.duration
+    sparse = max_active is not None and max_active < F
+    if sparse:
+        # ONE gather serves the solve and the reward: the reward's instant
+        # (t + duration/2) lies inside the interval window
+        (buffers, tps, idx, valid, c_tps, c_threads, c_flows,
+         c_objs) = _sparse_topology_interval(
+            params, graph, paths, state.buffers, threads, state.t, flows,
+            substeps, objectives, max_active, return_compact=True)
+    else:
+        buffers, tps = topology_interval(params, state.buffers, threads,
+                                         state.t, graph=graph, paths=paths,
+                                         flows=flows, substeps=substeps,
+                                         objectives=objectives)
     delivered0 = state.delivered
     new_state = TopologyState(buffers=buffers, threads=threads,
                               throughputs=tps, t=state.t + params.duration,
                               prev_throughputs=state.throughputs,
                               delivered=delivered0 + tps[..., 2]
                               * params.duration)
-    objs = (_default_objectives_batch(E, F, tps.device)
-            if objectives is None else objectives)
-    reward = _fleet_reward(params, tps, threads,
-                           active_at(flows, state.t + 0.5 * params.duration),
-                           objs, delivered0, state.t, graph_peak_bw(graph),
-                           fairness_coef, deadline_coef)
+    if sparse:
+        if c_objs is None:
+            c_objs = _default_objectives_batch(E, max_active, tps.device)
+        c_delivered0 = torch.where(
+            valid, _take(delivered0, torch.clamp_max(idx, F - 1)), 0.0)
+        reward = _fleet_reward(params, c_tps, c_threads,
+                               active_at(c_flows, t_mid), c_objs,
+                               c_delivered0, state.t, bw_ref, fairness_coef,
+                               deadline_coef)
+    else:
+        objs = (_default_objectives_batch(E, F, tps.device)
+                if objectives is None else objectives)
+        reward = _fleet_reward(params, tps, threads, active_at(flows, t_mid),
+                               objs, delivered0, state.t, bw_ref,
+                               fairness_coef, deadline_coef)
     obs = topology_observe(params, new_state, flows=flows, graph=graph,
-                           paths=paths, spec=spec, objectives=objectives)
+                           paths=paths, spec=spec, objectives=objectives,
+                           max_active=max_active)
     return new_state, obs, reward
 
 

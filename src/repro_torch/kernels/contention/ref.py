@@ -12,9 +12,12 @@ import torch
 
 
 def contention_rates_reference(threads, act, onpath, tpt, bw, floor=None,
-                               cap=None, *, rounds=0):
+                               cap=None, *, rounds=0, fill=None):
     """threads (E, F, 3); act (E, S, F); onpath (E, S, F, L); tpt/bw
-    (E, S, L, 3); floor/cap optional (E, F). Returns (E, S, F, 3)."""
+    (E, S, L, 3); floor/cap optional (E, F). Returns (E, S, F, 3).
+    ``fill``: optional ``fill(alloc, headroom, eff, residual / total)``
+    taking the place of the ``rounds`` spill rounds (the topology's
+    closed-form fixed point, ``core.topology._sorted_water_fill``)."""
     eff = (threads[:, None, :, None, :] * act[..., None, None]
            * onpath[..., None])                          # (E, S, F, L, 3)
     total = torch.clamp_min(eff.sum(dim=2), 1e-9)        # (E, S, L, 3)
@@ -36,6 +39,9 @@ def contention_rates_reference(threads, act, onpath, tpt, bw, floor=None,
         residual = torch.clamp_min(bw - guaranteed.sum(dim=2), 0.0)
         alloc = share * residual[:, :, None]
         headroom = cap_b - guaranteed
+        if fill is not None:
+            alloc = fill(alloc, headroom, eff, residual / total)
+            rounds = 0
         for _ in range(rounds):
             spill = torch.clamp_min(alloc - headroom, 0.0).sum(dim=2)
             alloc = torch.minimum(alloc, headroom)

@@ -247,6 +247,19 @@ CLUSTER_SHAPES = [dict(E=1, S=3, F=600, L=3, rounds=4),
                   dict(E=1, S=3, F=600, L=4, rounds=4),
                   dict(E=1, S=2, F=2048, L=4, rounds=4),
                   dict(E=1, S=2, F=2100, L=4, rounds=8)]
+# the compact topology's solve (chip_smoke.py phase 19): A flows over 3
+# links in one block, floors and finite caps, rounds = A
+COMPACT_SHAPES = [dict(E=1, S=3, F=40, L=3, rounds=40),
+                  dict(E=1, S=2, F=256, L=3, rounds=256)]
+
+
+def floored(x):
+    """``spilling`` with floors kept, at a tenth of a fair share of a link
+    or less, as the compact topology's capped solve has them."""
+    F = x["act"].shape[2]
+    rng = np.random.default_rng(F + 1)
+    floor = rng.uniform(0.0, 0.1, x["floor"].shape) / F
+    return dict(spilling(x), floor=floor.astype(np.float32))
 
 
 @pytest.mark.parametrize("objectives", [False, True])
@@ -283,10 +296,29 @@ def test_emulated_order_fits_the_tolerance_in_clusters(shape):
     _hold_against_reference(x, True, shape["rounds"])
 
 
+@pytest.mark.parametrize("shape", COMPACT_SHAPES,
+                         ids=[f"F{s['F']}L{s['L']}" for s in COMPACT_SHAPES])
+def test_emulated_order_fits_the_tolerance_on_the_compact_topology(shape):
+    """The compact topology's layout: one block of A flows over 3 links,
+    floors and finite caps below a fair share, ``rounds = A`` spill rounds
+    that move bandwidth."""
+    F, L = shape["F"], shape["L"]
+    x = floored(operands(F + L, E=shape["E"], S=shape["S"], F=F, L=L))
+    assert launch_shape(F, L, True)[:3] == ("block", -(-F // 32) * 32, 1)
+    args = _args(x, True)
+    moved = contention_rates_reference(*args, rounds=shape["rounds"])
+    still = contention_rates_reference(*args, rounds=0)
+    assert float((moved - still).abs().max()) > 1e-4   # it spilled
+    assert float(x["floor"].min()) < float(x["floor"].max())
+    _hold_against_reference(x, True, shape["rounds"])
+
+
 @pytest.mark.parametrize("F,L,objectives,layout", [
     (1, 1, False, ("group", 1)), (5, 2, True, ("group", 8)),
     (32, 3, False, ("group", 32)), (33, 1, False, ("block", 64, 1, 1)),
     (257, 3, True, ("block", 256, 1, 2)),
+    (40, 3, True, ("block", 64, 1, 1)), (256, 3, True, ("block", 256, 1, 1)),
+    (4096, 3, True, ("block", 256, 8, 2)),
     (1000, 2, False, ("block", 512, 1, 2)),
     (4096, 1, False, ("block", 1024, 1, 4)),
     (4096, 1, True, ("block", 512, 2, 4)),
@@ -328,15 +360,17 @@ def test_order_differs_from_a_plain_sum():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", CUDA_SHAPES + EDGE_SHAPES + CLUSTER_SHAPES,
+@pytest.mark.parametrize("shape", CUDA_SHAPES + EDGE_SHAPES + CLUSTER_SHAPES
+                         + COMPACT_SHAPES,
                          ids=[f"E{s['E']}F{s['F']}L{s['L']}R{s['rounds']}"
                               for s in CUDA_SHAPES + EDGE_SHAPES
-                              + CLUSTER_SHAPES])
+                              + CLUSTER_SHAPES + COMPACT_SHAPES])
 def test_cuda_kernel_is_the_emulation_bit_for_bit(shape):
     """On a card: the kernel's output equals the emulation's on the same
     CUDA tensors, so the order emulated here is the order the kernel
     takes: in lane groups, in one block, in clusters of 2, 4 and 8 blocks
-    (CLUSTER_SHAPES with objectives) and in the streamed layout."""
+    (CLUSTER_SHAPES with objectives), in the streamed layout, and on the
+    compact topology's floors and caps (COMPACT_SHAPES)."""
     if not torch.cuda.is_available():
         pytest.skip("cuda: needs a CUDA card and nvcc")
     from repro_torch.kernels.contention import kernel
@@ -344,6 +378,8 @@ def test_cuda_kernel_is_the_emulation_bit_for_bit(shape):
     x = operands(F + L, E=shape["E"], S=shape["S"], F=F, L=L)
     if shape in CLUSTER_SHAPES:
         x = spilling(x)
+    if shape in COMPACT_SHAPES:
+        x = floored(x)
     for objectives in (False, True):
         args = _args(x, objectives, "cuda")
         got = kernel.launch(*args, rounds=shape["rounds"])

@@ -431,6 +431,11 @@ def test_topology_controller_routes_follow_route_bins():
 
 
 def test_fleet_controller_refuses_a_topology_spec_and_compact_is_refused():
+    """The compact path (max_active < F) was refused with
+    NotImplementedError until it was ported; the reset now runs it and
+    equals the dense reset. ``max_active`` is a promise on the inputs:
+    three of env 1's flows start in the reset's interval [0, 1), so the
+    bound is 3 (< F = 4)."""
     with pytest.raises(NotImplementedError, match="TopologyController"):
         FleetController(_net(tsim.TOPOLOGY_OBS), n_flows=2,
                         obs_spec=tsim.TOPOLOGY_OBS,
@@ -438,9 +443,12 @@ def test_fleet_controller_refuses_a_topology_spec_and_compact_is_refused():
     _, tp = params()
     w = world(3)
     graph, paths, flows, _ = port_world(w, False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tt.topology_reset(tp, E, F, graph=graph, paths=paths, flows=flows,
-                          substeps=S, max_active=2)
+    states = [tt.topology_reset(tp, E, F, graph=graph, paths=paths,
+                                flows=flows, substeps=S, max_active=ma,
+                                generator=torch.Generator().manual_seed(0))
+              for ma in (3, None)]
+    for compact, dense in zip(*states):
+        torch.testing.assert_close(compact, dense, atol=1e-6, rtol=0)
 
 
 def test_padding_routes_leaves_the_reward_unchanged():

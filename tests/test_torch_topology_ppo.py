@@ -188,6 +188,15 @@ def test_tiny_topology_train_ppo_runs_and_counts_episodes(policy):
 
 
 def test_train_ppo_takes_one_topology_workload_and_refuses_compact():
+    """The compact path (max_active < F) was refused with
+    NotImplementedError until it was ported; train_ppo now runs it and
+    scores the same episodes as the dense path. ``max_active`` is a
+    promise on the inputs: both flows of each env are live at once, so
+    the compact run pads the workload to four flows (``pad_flows``: two
+    never-active, pathless flows) and bounds each interval at the two real
+    ones. Only the scores are compared: a flow outside an interval's
+    window observes a zero row on the compact path, so the update's
+    samples differ."""
     _, tenv = env_params()
     wl = sample_topology_batch(2, 2, n_links=3, seed=4, horizon=20.0,
                                objective_mix=True, device="cpu")
@@ -196,7 +205,10 @@ def test_train_ppo_takes_one_topology_workload_and_refuses_compact():
                          device="cpu")
     res = tppo.train_ppo(tenv, cfg, workload=wl)
     assert res.episodes == 4 and np.isfinite(res.best_reward)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tppo.train_ppo(tenv, tppo.PPOConfig(
-            max_episodes=2, n_envs=2, n_flows=2, max_steps=2, max_active=1,
-            obs_spec=tsim.TOPOLOGY_OBS, device="cpu"), workload=wl)
+    compact, dense = (tppo.train_ppo(tenv, tppo.PPOConfig(
+        max_episodes=2, n_envs=2, n_flows=4, pad_flows=True, max_steps=2,
+        max_active=ma, obs_spec=tsim.TOPOLOGY_OBS, device="cpu"),
+        workload=wl) for ma in (2, None))
+    assert compact.episodes == dense.episodes == 2
+    np.testing.assert_allclose(compact.history, dense.history, atol=1e-5,
+                               rtol=1e-5)
