@@ -120,6 +120,24 @@ port's entry points:
                 sorted water-fill's fixed point, with and without the
                 rounds timed; one compact topology PPO episode batch (4
                 envs x 64 flows, max_active 16) against the CPU, profiled
+ 20. zamba2     repro_torch.launch.serve at the full zamba2-1.2b config (8
+                prompts of 1024 tokens, 32 greedy tokens each): K5 on each
+                of the 38 Mamba2 layers and K4 on each of the 6 shared-
+                block invocations per prefill, neither in decode; finite
+                logits, agreement with the 'full' backend and with a
+                prefill through the plain scan, decode against a longer
+                prefill; K4 and K5 held on the operands the path gave them
+                (every call of one prefill) and timed on the first; a
+                profile of one prefill and one decode step
+ 21. mixtral    the same at mixtral-8x22b's full width, 2 of its 56 layers
+                (2 prompts of 6144 tokens, past its 4096 window, so K4
+                masks and the ring cache wraps); against the 'chunked'
+                backend; the capacity dispatch of moe_apply with nothing
+                dropped against moe_apply_dense_reference on a layer input
+                the path gave it
+ 22. dense      the same for deepseek-7b (MHA), granite-34b (MQA, the GELU
+                MLP) and chatglm3-6b (GQA 16:1, partial rope, qkv biases),
+                each at full width with 8 layers (8 prompts of 1024 tokens)
 
 It prints each phase's wall time, its findings on earlier lines, one JSON
 line with every kernel's numbers, the nvidia-smi line, and ends with the
@@ -131,6 +149,7 @@ that line. Without CUDA, or without the repository beside it, it fails.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -370,6 +389,42 @@ SSM_ARCH = "mamba2-1.3b"
 # within twice SERVE_ATOL, and the greedy token within SERVE_ATOL +
 # SERVE_RTOL of the top logit
 SSM_E2E_ATOL = 2 * SERVE_ATOL
+# phases 20-22: the serving families at full width through serve(), 32
+# greedy tokens per request like phase 11: arch -> (layers kept (None: the
+# published depth), prompts, prompt tokens, the backend the 'pallas'
+# logits are held against). Depth is cut where the weights drawn on the
+# host in float32 would take minutes (mixtral: 2 of 56 layers, 141e9
+# parameters in all; the dense configs 8 layers each); mixtral's prompts
+# are longer than its 4096 window, and its reference backend is its
+# config's 'chunked', since 'full' would hold every layer's 6144 x 6144
+# scores
+FAMILY_SERVE = {
+    20: {"zamba2-1.2b": (None, 8, 1024, "full")},
+    21: {"mixtral-8x22b": (2, 2, 6144, "chunked")},
+    22: {"deepseek-7b": (8, 8, 1024, "full"),
+         "granite-34b": (8, 8, 1024, "full"),
+         "chatglm3-6b": (8, 8, 1024, "full")},
+}
+# the plain K4 version materializes (B, Hq, S, Skv) float32 scores; above
+# this many bytes it runs one kv head's group of q heads at a time (the
+# same function: no head reads another's keys)
+FA_PLAIN_SCORE_BYTES = 4e9
+# moe_apply with capacity_factor = E/top_k (nothing dropped) against
+# moe_apply_dense_reference on the same bf16 input: the same expert
+# products in the same type, so any gap is bf16 rounding of the products
+# (an ulp of the largest output, 2^-7 relative, gives room for two)
+MOE_TOL = 2.0 ** -6
+# a bf16 MoE compared across two paths (two attention backends, or a decode
+# step against a longer prefill) routes a token to other experts where its
+# k-th and (k+1)-th router logits nearly tie: the paths' bf16 roundings
+# move the router's input, and the swapped expert moves that token's
+# logits by O(1). A row whose last token is routed otherwise in some layer
+# is left out of the logit comparison if, at the first such layer, those
+# two logits lie within MOE_TIE of each other on both paths; a flip at a
+# wider gap fails. MOE_TIE is far below the typical gap between
+# neighbouring logits of 8 experts at unit scale (order 0.3), and the
+# gaps at the flips are printed
+MOE_TIE = 0.05
 # device kernel names: every kernel of a library carries its prefix (the
 # float32 and bf16 routes alike); the main paths run the bf16 kernels
 FA_PREFIX, FA_PATH_KERNEL = "flash_attention_", "flash_attention_bf16_kernel"
@@ -1052,14 +1107,88 @@ def phase_fleet_scale(torch):
                 compact_ms=scale["compact"][0], profile=prof)
 
 
-def phase_attention(torch):
-    """10. K4 against its plain version at every shape of FA_SHAPES, with
-    kernel (CUDA events), device (profiler), plain, library and bound
-    times. The library call, scaled_dot_product_attention, is timed as a
-    yardstick only: the port never calls it."""
-    from repro_torch.kernels.flash_attention import ops
+def fa_plain(torch, q, k, v, window):
+    """K4's plain version; above FA_PLAIN_SCORE_BYTES of scores, one kv
+    head's group of q heads at a time."""
     from repro_torch.kernels.flash_attention.ref import attention_reference
+    B, S, Hq, _ = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if 4 * B * Hq * S * Skv <= FA_PLAIN_SCORE_BYTES:
+        return attention_reference(q, k, v, window=window)
+    g = Hq // Hkv
+    return torch.cat([attention_reference(
+        q[:, :, h * g:(h + 1) * g].contiguous(), k[:, :, h:h + 1].contiguous(),
+        v[:, :, h:h + 1].contiguous(), window=window)
+        for h in range(Hkv)], dim=2)
+
+
+def fa_row(torch, name, q, k, v, window, *, first_design=False):
+    """K4 on (q, k, v) against its plain version (within FA_TOL), with
+    kernel (CUDA events), device (profiler), plain, library and bound
+    times; ``first_design``: also the float32 route's on the same inputs.
+    The library call, scaled_dot_product_attention, is timed as a
+    yardstick only: the port never calls it. With a window it takes a
+    boolean band mask; for S above 4096 the kv heads are repeated to the q
+    heads outside the timed call, so that the memory-efficient backend
+    (which takes a mask but not enable_gqa) runs instead of the math one."""
+    from repro_torch.kernels.flash_attention import ops
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    dtype = str(q.dtype).split(".")[-1]
+    kern = lambda: ops.flash_attention(q, k, v, window=window)
+    plain = lambda: fa_plain(torch, q, k, v, window)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window is None:
+        lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_call = "sdpa(is_causal=True, enable_gqa=True)"
+    else:
+        pos = torch.arange(S, device=q.device)
+        band = ((pos[:, None] >= pos[None, :])
+                & (pos[:, None] - pos[None, :] < window))
+        if S > 4096:
+            ke, ve = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (kt, vt))
+            lib = lambda: sdpa(qt, ke, ve, attn_mask=band)
+            lib_call = "sdpa(attn_mask=band), kv heads repeated before"
+        else:
+            lib = lambda: sdpa(qt, kt, vt, attn_mask=band, enable_gqa=True)
+            lib_call = "sdpa(attn_mask=band, enable_gqa=True)"
+    got = kern()
+    torch.cuda.synchronize()
+    err = float((got.float() - plain().float()).abs().max())
+    if not err <= FA_TOL[dtype]:
+        fail(f"flash_attention {name}: max abs err {err} > {FA_TOL[dtype]}")
+    b_ms, b_by, terms = fa_bound(B, S, Hq, Hkv, D, window, dtype)
+    row = dict(B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, window=window,
+               dtype=dtype, max_abs_err=err,
+               ms=time_ms(torch, kern, samples=10, inner=10),
+               device_ms=device_ms(torch, kern, FA_PREFIX, n=10),
+               plain_ms=time_ms(torch, plain, samples=5, inner=3, warmup=1),
+               library_ms=time_ms(torch, lib, samples=10, inner=10),
+               library_call=lib_call, bound_ms=b_ms, bound_by=b_by,
+               bound_terms=terms)
+    if first_design and dtype == "bfloat16":
+        # the first design, which the float32 route keeps, on the same
+        # inputs in float32: its time does not depend on dtype
+        q32, k32, v32 = (x.float() for x in (q, k, v))
+        first = lambda: ops.flash_attention(q32, k32, v32, window=window)
+        row.update(first_design_ms=time_ms(torch, first, samples=5, inner=5),
+                   first_design_device_ms=device_ms(torch, first, FA_PREFIX,
+                                                    n=5))
+    print(f"[attention] {name} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+          f"window={window} {dtype}: max_abs_err={err:.3g} "
+          f"ms={row['ms']} device_ms={row['device_ms']} "
+          f"first_design_device_ms={row.get('first_design_device_ms')} "
+          f"plain_ms={row['plain_ms']} library_ms={row['library_ms']} "
+          f"({lib_call}) bound_ms={b_ms:.4g} ({b_by}; {json.dumps(terms)}); "
+          f"kernel/library {row['ms'] / row['library_ms']:.2f}x, "
+          f"kernel/bound {row['ms'] / b_ms:.1f}x")
+    return row
+
+
+def phase_attention(torch):
+    """10. K4 against its plain version at every shape of FA_SHAPES
+    (``fa_row``), with the first design's times at each bf16 shape."""
     rows = {}
     for i, (name, (B, S, Hq, Hkv, D, window, dtype)) in enumerate(
             FA_SHAPES.items()):
@@ -1068,49 +1197,7 @@ def phase_attention(torch):
         q, k, v = (torch.randn((B, S, h, D), generator=gen,
                                device="cuda").to(dt)
                    for h in (Hq, Hkv, Hkv))
-        kern = lambda: ops.flash_attention(q, k, v, window=window)
-        plain = lambda: attention_reference(q, k, v, window=window)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        if window is None:
-            lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
-        else:
-            pos = torch.arange(S, device="cuda")
-            band = ((pos[:, None] >= pos[None, :])
-                    & (pos[:, None] - pos[None, :] < window))
-            lib = lambda: sdpa(qt, kt, vt, attn_mask=band, enable_gqa=True)
-        got = kern()
-        torch.cuda.synchronize()
-        err = float((got.float() - plain().float()).abs().max())
-        if not err <= FA_TOL[dtype]:
-            fail(f"flash_attention {name}: max abs err {err} > "
-                 f"{FA_TOL[dtype]}")
-        b_ms, b_by, terms = fa_bound(B, S, Hq, Hkv, D, window, dtype)
-        row = dict(B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, window=window,
-                   dtype=dtype, max_abs_err=err,
-                   ms=time_ms(torch, kern, samples=10, inner=10),
-                   device_ms=device_ms(torch, kern, FA_PREFIX, n=10),
-                   plain_ms=time_ms(torch, plain, samples=5, inner=3,
-                                    warmup=1),
-                   library_ms=time_ms(torch, lib, samples=10, inner=10),
-                   bound_ms=b_ms, bound_by=b_by, bound_terms=terms)
-        if dtype == "bfloat16":
-            # the first design, which the float32 route keeps, on
-            # the same inputs in float32: its time does not depend on dtype
-            q32, k32, v32 = (x.float() for x in (q, k, v))
-            first = lambda: ops.flash_attention(q32, k32, v32, window=window)
-            row.update(first_design_ms=time_ms(torch, first, samples=5,
-                                               inner=5),
-                       first_design_device_ms=device_ms(torch, first,
-                                                        FA_PREFIX, n=5))
-        rows[name] = row
-        print(f"[attention] {name} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
-              f"window={window} {dtype}: max_abs_err={err:.3g} "
-              f"ms={row['ms']} device_ms={row['device_ms']} "
-              f"first_design_device_ms={row.get('first_design_device_ms')} "
-              f"plain_ms={row['plain_ms']} library_ms={row['library_ms']} "
-              f"bound_ms={b_ms:.4g} ({b_by}; {json.dumps(terms)}); "
-              f"kernel/library {row['ms'] / row['library_ms']:.2f}x, "
-              f"kernel/bound {row['ms'] / b_ms:.1f}x")
+        rows[name] = fa_row(torch, name, q, k, v, window, first_design=True)
     faster_than_first(rows["smollm_bf16"], "flash_attention smollm_bf16")
     return rows
 
@@ -1255,62 +1342,68 @@ def allclose_ratio(torch, got, want, tol):
     return float(((got - want).abs() / (tol + tol * want.abs())).max())
 
 
-def phase_ssd(torch):
-    """12. K5 against its plain version at every shape of SSD_SHAPES: y and
+def ssd_row(torch, name, args, *, first_design=False):
+    """K5 on ``args`` (x, dt, A, B, C) against its plain version: y and
     final state within the reference's tolerances, kernel (CUDA events),
-    device (profiler), plain and bound times. No single PyTorch call
-    computes the scan, so there is no library time."""
+    device (profiler), plain and bound times; ``first_design``: also the
+    float32 route's on the same inputs. No single PyTorch call computes
+    the scan, so there is no library time."""
     from repro_torch.kernels.ssd_scan import ops
     from repro_torch.kernels.ssd_scan.ref import ssd_reference
-    rows = {}
-    for i, (name, (b, s, h, p, g, n, dtype)) in enumerate(SSD_SHAPES.items()):
-        args = ssd_operands(torch, b, s, h, p, g, n, dtype, seed=i)
-        kern = lambda: ops.ssd_scan(*args, chunk=SSD_CHUNK, return_state=True)
-        plain = lambda: ssd_reference(*args, chunk=SSD_CHUNK)
-        y, state = kern()
-        torch.cuda.synchronize()
-        want_y, want_state = plain()
-        tol = SSD_TOL[dtype]
-        err_y = float((y.float() - want_y.float()).abs().max())
-        err_state = float((state - want_state).abs().max())
-        ratio = max(allclose_ratio(torch, y, want_y, tol),
-                    allclose_ratio(torch, state, want_state, tol))
-        if not (ratio <= 1.0 and np.isfinite(err_y)
-                and np.isfinite(err_state)):
-            fail(f"ssd_scan {name}: y err {err_y}, state err {err_state}, "
-                 f"{ratio:.3g} of the tolerance {tol} (atol and rtol)")
-        b_ms, b_by, terms = ssd_bound(b, s, h, p, g, n, dtype)
-        row = dict(b=b, s=s, h=h, p=p, g=g, n=n, chunk=SSD_CHUNK,
-                   dtype=dtype, max_abs_err=err_y,
-                   max_abs_err_state=err_state, tol_ratio=ratio,
-                   max_abs_y=float(want_y.float().abs().max()),
-                   ms=time_ms(torch, kern, samples=10, inner=10),
-                   device_ms=device_ms(torch, kern, SSD_PREFIX, n=10),
-                   plain_ms=time_ms(torch, plain, samples=5, inner=3,
-                                    warmup=1),
-                   library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                   bound_terms=terms)
-        if dtype == "bfloat16":
-            # the first design, which the float32 route keeps, on
-            # the same inputs with x, B, C in float32
-            x, dt_, A, B, C = args
-            args32 = (x.float(), dt_, A, B.float(), C.float())
-            first = lambda: ops.ssd_scan(*args32, chunk=SSD_CHUNK,
-                                         return_state=True)
-            row.update(first_design_ms=time_ms(torch, first, samples=5,
-                                               inner=5),
-                       first_design_device_ms=device_ms(torch, first,
-                                                        SSD_PREFIX, n=5))
-        rows[name] = row
-        print(f"[ssd] {name} b={b} s={s} h={h} p={p} g={g} n={n} {dtype}: "
-              f"y max_abs_err={err_y:.3g} (|y| max {row['max_abs_y']:.3g}), "
-              f"state max_abs_err={err_state:.3g}, {ratio:.3g} of the "
-              f"tolerance; ms={row['ms']} device_ms={row['device_ms']} "
-              f"first_design_device_ms={row.get('first_design_device_ms')} "
-              f"plain_ms={row['plain_ms']} bound_ms={b_ms:.4g} ({b_by}; "
-              f"{json.dumps(terms)}) library_ms=null; kernel/bound "
-              f"{row['ms'] / b_ms:.1f}x, plain/kernel "
-              f"{row['plain_ms'] / row['ms']:.2f}x")
+    x, dt_, A, B, C = args
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    dtype = str(x.dtype).split(".")[-1]
+    kern = lambda: ops.ssd_scan(*args, chunk=SSD_CHUNK, return_state=True)
+    plain = lambda: ssd_reference(*args, chunk=SSD_CHUNK)
+    y, state = kern()
+    torch.cuda.synchronize()
+    want_y, want_state = plain()
+    tol = SSD_TOL[dtype]
+    err_y = float((y.float() - want_y.float()).abs().max())
+    err_state = float((state - want_state).abs().max())
+    ratio = max(allclose_ratio(torch, y, want_y, tol),
+                allclose_ratio(torch, state, want_state, tol))
+    if not (ratio <= 1.0 and np.isfinite(err_y) and np.isfinite(err_state)):
+        fail(f"ssd_scan {name}: y err {err_y}, state err {err_state}, "
+             f"{ratio:.3g} of the tolerance {tol} (atol and rtol)")
+    b_ms, b_by, terms = ssd_bound(b, s, h, p, g, n, dtype)
+    row = dict(b=b, s=s, h=h, p=p, g=g, n=n, chunk=SSD_CHUNK,
+               dtype=dtype, max_abs_err=err_y,
+               max_abs_err_state=err_state, tol_ratio=ratio,
+               max_abs_y=float(want_y.float().abs().max()),
+               ms=time_ms(torch, kern, samples=10, inner=10),
+               device_ms=device_ms(torch, kern, SSD_PREFIX, n=10),
+               plain_ms=time_ms(torch, plain, samples=5, inner=3, warmup=1),
+               library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               bound_terms=terms)
+    if first_design and dtype == "bfloat16":
+        # the first design, which the float32 route keeps, on the same
+        # inputs with x, B, C in float32
+        args32 = (x.float(), dt_, A, B.float(), C.float())
+        first = lambda: ops.ssd_scan(*args32, chunk=SSD_CHUNK,
+                                     return_state=True)
+        row.update(first_design_ms=time_ms(torch, first, samples=5, inner=5),
+                   first_design_device_ms=device_ms(torch, first, SSD_PREFIX,
+                                                    n=5))
+    print(f"[ssd] {name} b={b} s={s} h={h} p={p} g={g} n={n} {dtype}: "
+          f"y max_abs_err={err_y:.3g} (|y| max {row['max_abs_y']:.3g}), "
+          f"state max_abs_err={err_state:.3g}, {ratio:.3g} of the "
+          f"tolerance; ms={row['ms']} device_ms={row['device_ms']} "
+          f"first_design_device_ms={row.get('first_design_device_ms')} "
+          f"plain_ms={row['plain_ms']} bound_ms={b_ms:.4g} ({b_by}; "
+          f"{json.dumps(terms)}) library_ms=null; kernel/bound "
+          f"{row['ms'] / b_ms:.1f}x, plain/kernel "
+          f"{row['plain_ms'] / row['ms']:.2f}x")
+    return row
+
+
+def phase_ssd(torch):
+    """12. K5 against its plain version at every shape of SSD_SHAPES
+    (``ssd_row``), with the first design's times at each bf16 shape."""
+    rows = {name: ssd_row(torch, name, ssd_operands(torch, *shape, seed=i),
+                          first_design=True)
+            for i, (name, shape) in enumerate(SSD_SHAPES.items())}
     faster_than_first(rows["mamba2_bf16"], "ssd_scan mamba2_bf16")
     return rows
 
@@ -3126,6 +3219,333 @@ def phase_topology_scale(torch):
                 agree=(err_rew, err_par), profile=prof)
 
 
+def expected_prefill_launches(cfg):
+    """K4 and K5 launches of one prefill: K4 once per attention layer (the
+    hybrid: once per shared-block invocation), K5 once per Mamba2 layer."""
+    if cfg.family == "hybrid":
+        return {"flash_attention": cfg.n_layers // cfg.attn_every,
+                "ssd_scan": cfg.n_layers}
+    return {"flash_attention": cfg.n_layers, "ssd_scan": 0}
+
+
+def near_top(torch, logits, other):
+    """Each row's greedy token of ``other`` scores within SERVE_ATOL +
+    SERVE_RTOL of ``logits``' top logit (the argmax, or a near-tie)."""
+    top = logits.max(dim=-1).values
+    chosen = logits.gather(1, other.argmax(dim=-1, keepdim=True))[:, 0]
+    return bool(torch.all(top - chosen
+                          <= SERVE_ATOL + SERVE_RTOL * top.abs()))
+
+
+def moe_dropped(torch, p, h, top_k, capacity_factor):
+    """The (token, choice) pairs past their expert's capacity in one
+    moe_apply call on ``h``, and the capacity C."""
+    xf = h.reshape(-1, h.shape[-1]).float()
+    _, top_idx = torch.topk(torch.softmax(xf @ p.router.w, -1), top_k)
+    E = p.router.w.shape[1]
+    C = int(np.ceil(xf.shape[0] * top_k / E * capacity_factor))
+    counts = torch.bincount(top_idx.reshape(-1), minlength=E)
+    return int(torch.clamp_min(counts - C, 0).sum()), C
+
+
+def last_routes(torch, calls, top_k):
+    """Per MoE layer of one forward (``Recorder`` calls of moe_apply): the
+    last position's top_k experts per row, sorted, and the gap between its
+    k-th and (k+1)-th router logits."""
+    out = []
+    for (p, h), _ in calls:
+        with torch.no_grad():
+            logits = h[:, -1].float() @ p.router.w
+        top = torch.topk(logits, top_k + 1)
+        out.append((top.indices[:, :top_k].sort(-1).values,
+                    top.values[:, top_k - 1] - top.values[:, top_k]))
+    return out
+
+
+def routing_flips(torch, a, b, rows):
+    """Rows whose last token ``last_routes`` a and b send to other experts
+    in some layer, and per such row the larger of the two paths' router
+    gaps at its first such layer."""
+    flipped = torch.zeros(rows, dtype=torch.bool)
+    gaps = {}
+    for (ia, ga), (ib, gb) in zip(a, b):
+        differ = (ia != ib).any(-1).cpu()
+        for r in (differ & ~flipped).nonzero()[:, 0].tolist():
+            gaps[r] = max(float(ga[r]), float(gb[r]))
+        flipped |= differ
+    return flipped, gaps
+
+
+def phase_family(torch, card, arch, layers, B, P, ref_backend):
+    """20-22. One arch of FAMILY_SERVE served through serve() at full width
+    with the 'pallas' backend on weights drawn from SERVE_SEED, counting
+    K4's and K5's launches; then, on the same weights and prompts: finite
+    logits, the greedy token serve() chose, the launches of one prefill
+    (K4 and K5 held on every call's operands, timed on the first) and of
+    one decode step (none), agreement with ``ref_backend``, decode against
+    a longer prefill; the hybrid's K5 held on every Mamba2 layer's inputs
+    and its logits against a prefill through the plain scan; the MoE's
+    capacity dispatch with nothing dropped against the dense oracle on a
+    layer input of the path; a profile of one prefill and one decode
+    step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import get_model, ssm as ssm_model
+    from repro_torch.nn import attention as attn_mod, moe as moe_mod
+    from repro_torch.nn.ssd import ssd_chunked
+    from repro_torch.kernels.ssd_scan import ops as k5_ops
+    cfg = get_config(arch).replace(attn_backend="pallas")
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    G = SERVE_GEN
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SERVE_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    expect = expected_prefill_launches(cfg)
+    reset_launches()
+    toks, info = serve(cfg, batch=B, prompt_len=P, gen=G, seed=SERVE_SEED,
+                       params=params)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"[{arch}] {cfg.family}, {cfg.n_layers} layers (published "
+          f"{get_config(arch).n_layers}), d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, window "
+          f"{cfg.window or None}, vocab {cfg.vocab}, {n_params} parameters "
+          f"drawn on the host in {init_s:.2f} s, bf16, attn_backend=pallas:"
+          f" {B} prompts x {P} tokens, {G} greedy tokens each; prefill "
+          f"{info['prefill_s']:.4f} s, decode {info['decode_s']:.4f} s = "
+          f"{info['tok_per_s']:.1f} tokens/s on {card}; launches "
+          f"{json.dumps(launches)}")
+    if tuple(toks.shape) != (B, G) or not (
+            0 <= int(toks.min()) and int(toks.max()) < cfg.vocab):
+        fail(f"{arch}: serve returned tokens {tuple(toks.shape)} out of "
+             f"range")
+    if launches != {**{k: 0 for k in launches}, **expect}:
+        fail(f"{arch}: serving launched {json.dumps(launches)}, expected "
+             f"{json.dumps(expect)} (one prefill) and no other")
+
+    rng = np.random.default_rng(SERVE_SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, P),
+                                           dtype=np.int32)).cuda()
+    batch = {"tokens": tokens}
+    layer_ratios = []
+
+    def held_against_plain(x, dt, A, B_, C, *, chunk):
+        """K5 on a layer's own inputs, held against the plain scan."""
+        y, state = k5_ops.ssd_scan(x, dt, A, B_, C, chunk=chunk,
+                                   return_state=True)
+        want_y, want_state = ssd_chunked(x, dt, A, B_, C, chunk=chunk)
+        tol = SSD_TOL[str(x.dtype).split(".")[-1]]
+        layer_ratios.append(max(allclose_ratio(torch, y, want_y, tol),
+                                allclose_ratio(torch, state, want_state,
+                                               tol)))
+        return y, state
+
+    hybrid = cfg.family == "hybrid"
+    moe_cfg = None
+    with torch.inference_mode():
+        reset_launches()
+        with Recorder(attn_mod, "flash_attention") as fa_rec, \
+                Recorder(ssm_model, "ssd_scan", keep=(0,)) as ssd_rec, \
+                Recorder(moe_mod, "moe_apply") as moe_rec:
+            logits, cache = model.prefill(params, batch,
+                                          model.init_cache(B, P + G))
+            torch.cuda.synchronize()
+        n_prefill = read_launches()
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        reset_launches()
+        step_logits, cache = model.decode_step(params, cache, tok)
+        torch.cuda.synchronize()
+        n_decode = read_launches()
+        ref = get_model(cfg.replace(attn_backend=ref_backend))
+        with Recorder(moe_mod, "moe_apply") as ref_rec:
+            logits_ref, _ = ref.prefill(params, batch,
+                                        ref.init_cache(B, P + G))
+        # decode against a longer prefill. An MoE decode step routes B
+        # tokens, and at capacity_factor 1.25 its capacity is
+        # ceil(2 B / E * 1.25) = 1 slot an expert: tokens drop by the
+        # reference's semantics where the prefill keeps them. The check is
+        # of the cache, so here both sides route with nothing dropped
+        # (capacity_factor E / top_k)
+        if cfg.n_experts:
+            moe_cfg = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+        cm = get_model(moe_cfg or cfg)
+        with Recorder(moe_mod, "moe_apply") as long_rec:
+            long_ = (cm.prefill(params, batch, cm.init_cache(B, P + G))[0]
+                     if moe_cfg else logits)
+        short, c2 = cm.prefill(params, {"tokens": tokens[:, :-1]},
+                               cm.init_cache(B, P + G))
+        with Recorder(moe_mod, "moe_apply") as dec_rec:
+            consist, _ = cm.decode_step(params, c2, tokens[:, -1:])
+        if moe_cfg is not None:   # the path's own capacity, for the record
+            short_p, c3 = model.prefill(params, {"tokens": tokens[:, :-1]},
+                                        model.init_cache(B, P + G))
+            consist_path, _ = model.decode_step(params, c3, tokens[:, -1:])
+        if hybrid:
+            logits_plain, _ = model.prefill(params, batch,
+                                            model.init_cache(B, P + G),
+                                            ssd_fn=ssd_chunked)
+            logits_held, _ = model.prefill(params, batch,
+                                           model.init_cache(B, P + G),
+                                           ssd_fn=held_against_plain)
+        torch.cuda.synchronize()
+    live = slice(0, cfg.vocab)   # the padded rows are -1e30 in both
+    checked = [logits, step_logits, logits_ref, long_, short, consist]
+    finite = all(bool(torch.isfinite(x).all()) for x in checked)
+    same_first = bool(torch.equal(tok[:, 0], toks[:, 0]))
+    k = cfg.top_k
+    ref_flips, ref_gaps = routing_flips(
+        torch, last_routes(torch, moe_rec.calls, k),
+        last_routes(torch, ref_rec.calls, k), B)
+    step_flips, step_gaps = routing_flips(
+        torch, last_routes(torch, long_rec.calls, k),
+        last_routes(torch, dec_rec.calls, k), B)
+    del ref_rec, long_rec, dec_rec
+    if (max([*ref_gaps.values(), *step_gaps.values(), 0.0]) > MOE_TIE
+            or bool(ref_flips.all()) or bool(step_flips.all())):
+        fail(f"{arch}: rows were routed apart at router gaps {ref_gaps} (vs "
+             f"{ref_backend}) and {step_gaps} (decode), above {MOE_TIE}, or "
+             f"every row was")
+    rk, sk = (~ref_flips).to(logits.device), (~step_flips).to(logits.device)
+    d_ref = (logits - logits_ref)[rk][:, live].abs()
+    d_step = (consist - long_)[sk][:, live].abs()
+    step_ratio = float((d_step / (SERVE_ATOL + SERVE_RTOL
+                                  * long_[sk][:, live].abs())).max())
+    step_ok = step_ratio <= 1.0 and near_top(torch, long_[sk], consist[sk])
+    out = dict(arch=arch, n_layers=cfg.n_layers, batch=B, prompt=P, gen=G,
+               info=info, init_s=init_s, n_params=n_params,
+               launches=launches, prefill_launches=n_prefill,
+               decode_launches=n_decode, ref_backend=ref_backend,
+               max_diff_ref=float(d_ref.max()),
+               max_diff_step=float(d_step.max()), step_tol_ratio=step_ratio,
+               routed_apart_ref=ref_gaps, routed_apart_step=step_gaps)
+    print(f"[{arch} check] logits finite {finite}; prefill launches "
+          f"{json.dumps(n_prefill)}, decode step launches "
+          f"{json.dumps(n_decode)}; serve's first tokens reproduced "
+          f"{same_first}; pallas vs {ref_backend}: max abs diff "
+          f"{out['max_diff_ref']:.4g}, mean {float(d_ref.mean()):.4g}, "
+          f"argmax agree "
+          f"{float((logits.argmax(-1) == logits_ref.argmax(-1)).float().mean()):.3f}"
+          f" (|logit| max {float(logits[:, live].abs().max()):.3g}); "
+          f"prefill({P}) vs prefill({P - 1}) + decode"
+          f"{' (capacity_factor E/top_k)' if moe_cfg else ''}: max abs diff "
+          f"{out['max_diff_step']:.4g}, {step_ratio:.3g} of atol+rtol"
+          + (f"; rows whose last token was routed to other experts, with "
+             f"the router gap at the first such layer (left out; near-ties "
+             f"within {MOE_TIE}): vs {ref_backend} {ref_gaps}, decode "
+             f"{step_gaps}" if cfg.n_experts else ""))
+    if not finite:
+        fail(f"non-finite logits in {arch} serving")
+    if n_prefill != {**{k: 0 for k in n_prefill}, **expect} or any(
+            n_decode.values()):
+        fail(f"{arch}: a prefill launched {json.dumps(n_prefill)} and a "
+             f"decode step {json.dumps(n_decode)}, expected "
+             f"{json.dumps(expect)} and none")
+    if not same_first:
+        fail(f"{arch}: the same weights and prompts did not reproduce "
+             f"serve's first tokens")
+    if not out["max_diff_ref"] <= SERVE_ATOL:
+        fail(f"{arch}: the pallas and {ref_backend} backends differ by "
+             f"{out['max_diff_ref']} > {SERVE_ATOL}")
+    if not step_ok:
+        fail(f"{arch}: a decode step disagrees with the longer prefill")
+    if moe_cfg is not None:
+        d_path = (consist_path - logits)[:, live].abs()
+        out["max_diff_step_path_capacity"] = float(d_path.max())
+        print(f"[{arch} check] at the path's capacity_factor "
+              f"{cfg.capacity_factor} (decode drops by design): prefill({P})"
+              f" vs prefill({P - 1}) + decode max abs diff "
+              f"{float(d_path.max()):.4g} (recorded, not held)")
+
+    if hybrid:
+        d_plain = (logits - logits_plain)[:, live].abs()
+        held_same = bool(torch.equal(logits_held, logits))
+        out.update(layer_tol_ratio=max(layer_ratios),
+                   max_diff_plain=float(d_plain.max()))
+        print(f"[{arch} check] K5 vs the plain scan on each layer's inputs:"
+              f" at most {max(layer_ratios):.3g} of SSD_TOL over "
+              f"{len(layer_ratios)} layers; K5 vs plain-scan prefill: max "
+              f"abs diff {out['max_diff_plain']:.4g}, mean "
+              f"{float(d_plain.mean()):.4g}; held prefill identical "
+              f"{held_same}")
+        if len(layer_ratios) != cfg.n_layers or not max(layer_ratios) <= 1:
+            fail(f"{arch}: K5 disagrees with the plain scan on a layer's "
+                 f"inputs: {max(layer_ratios)} of SSD_TOL")
+        if not held_same:
+            fail(f"{arch}: a prefill through K5 held against the plain scan"
+                 f" gave other logits than the plain K5 prefill")
+        if not (out["max_diff_plain"] <= SSM_E2E_ATOL
+                and near_top(torch, logits_plain, logits)):
+            fail(f"{arch}: the K5 and plain-scan prefills differ by "
+                 f"{out['max_diff_plain']} (limit {SSM_E2E_ATOL}), or their"
+                 f" greedy tokens are no near-tie")
+        (x, dt, A, B_, C), _ = ssd_rec.calls[0]
+        out["k5"] = ssd_row(torch, f"{arch}_path", (x, dt, A, B_, C))
+
+    if cfg.n_experts:
+        (p_ffn, h), _ = moe_rec.calls[0]
+        cf = cfg.n_experts / cfg.top_k
+        with torch.inference_mode():
+            cap, _ = moe_mod.moe_apply(p_ffn, h, top_k=cfg.top_k,
+                                       capacity_factor=cf,
+                                       normalize_weights=cfg.moe_normalize)
+            dense = moe_mod.moe_apply_dense_reference(
+                p_ffn, h, top_k=cfg.top_k,
+                normalize_weights=cfg.moe_normalize)
+            torch.cuda.synchronize()
+        err = float((cap.float() - dense.float()).abs().max())
+        scale = float(dense.float().abs().max())
+        dropped, C = moe_dropped(torch, p_ffn, h, cfg.top_k,
+                                 cfg.capacity_factor)
+        out.update(moe_max_abs_err=err, moe_max_abs=scale,
+                   moe_dropped=dropped, moe_capacity=C)
+        print(f"[{arch} moe] layer 0's input {tuple(h.shape)}: moe_apply at "
+              f"capacity_factor {cf} vs moe_apply_dense_reference: max abs "
+              f"err {err:.4g} (|y| max {scale:.4g}, limit "
+              f"{MOE_TOL * scale:.4g}); at the path's capacity_factor "
+              f"{cfg.capacity_factor}: C = {C}, {dropped} of "
+              f"{h.shape[0] * h.shape[1] * cfg.top_k} choices dropped")
+        if not (np.isfinite(err) and err <= MOE_TOL * scale):
+            fail(f"{arch}: moe_apply differs from its dense oracle by {err}")
+
+    fa_errs = []
+    for (q, k, v), kw in fa_rec.calls:
+        got = fa_rec.real(q, k, v, **kw)
+        fa_errs.append(float((got.float() - fa_plain(
+            torch, q, k, v, kw.get("window")).float()).abs().max()))
+    print(f"[{arch} attention] K4 vs its plain version on the "
+          f"{len(fa_errs)} calls of one prefill: max abs err "
+          f"{max(fa_errs):.3g} (limit {FA_TOL['bfloat16']})")
+    if (len(fa_errs) != expect["flash_attention"]
+            or not max(fa_errs) <= FA_TOL["bfloat16"]):
+        fail(f"{arch}: K4 disagrees with its plain version on the path's "
+             f"operands: {fa_errs}")
+    (q, k, v), kw = fa_rec.calls[0]
+    out["k4"] = fa_row(torch, f"{arch}_path", q, k, v, kw.get("window"))
+    out["k4"]["max_abs_err_path"] = max(fa_errs)
+    del fa_rec, ssd_rec, moe_rec
+
+    def one_prefill():
+        with torch.inference_mode():
+            model.prefill(params, batch, model.init_cache(B, P + G))
+
+    def one_decode():
+        with torch.inference_mode():
+            model.decode_step(params, cache, tok)
+
+    kernels = (FA_PATH_KERNEL, SSD_PATH_KERNEL) if hybrid else (
+        FA_PATH_KERNEL,)
+    out["profile"] = {"prefill": profile_round(torch, one_prefill, kernels),
+                      "decode_step": profile_round(torch, one_decode,
+                                                   kernels)}
+    for name, pr in out["profile"].items():
+        print(f"[{arch} profile] {name}: " + json.dumps(pr))
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3363,6 +3783,14 @@ def main():
     # --- 19. topology scale-out: the compact-active-set path ----------------
     tsc = phase_topology_scale(torch)
     lap(19)
+    # --- 20-22. serving families: zamba2 (K4 + K5), mixtral, dense D=128 ---
+    fam = {}
+    for phase, archs in FAMILY_SERVE.items():
+        for arch, spec in archs.items():
+            fam[arch] = phase_family(torch, card, arch, *spec)
+            gc.collect()
+            torch.cuda.empty_cache()
+        lap(phase)
     print(f"[wall] per phase s {json.dumps(walls)}; total "
           f"{sum(walls.values()):.2f} s")
     print(f"[profiler] device_ms windows: {PROFILER_WINDOWS['calls']} "
@@ -3459,8 +3887,14 @@ def main():
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:31",
-        "launches": sv["launches"]["flash_attention"],
-        "max_abs_err": max(r["max_abs_err"] for r in k4.values()),
+        "launches": sv["launches"]["flash_attention"] + sum(
+            f["launches"]["flash_attention"] for f in fam.values()),
+        "launches_smollm": sv["launches"]["flash_attention"],
+        **{f"launches_{a}": f["launches"]["flash_attention"]
+           for a, f in fam.items()},
+        "max_abs_err": max([r["max_abs_err"] for r in k4.values()]
+                           + [f["k4"]["max_abs_err_path"]
+                              for f in fam.values()]),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
@@ -3472,13 +3906,20 @@ def main():
     for name, r in k4.items():
         if name != "smollm_bf16":
             kernels[-1][f"at_{name}"] = r
+    for a, f in fam.items():
+        kernels[-1][f"at_{a}_path"] = f["k4"]
+    k5_path = {a: f["k5"] for a, f in fam.items() if "k5" in f}
     row = k5["mamba2_bf16"]
     kernels.append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:27",
-        "launches": mb["launches"]["ssd_scan"],
-        "max_abs_err": max(r["max_abs_err"] for r in k5.values()),
+        "launches": mb["launches"]["ssd_scan"] + sum(
+            f["launches"]["ssd_scan"] for f in fam.values()),
+        "launches_mamba2": mb["launches"]["ssd_scan"],
+        **{f"launches_{a}": fam[a]["launches"]["ssd_scan"] for a in k5_path},
+        "max_abs_err": max(r["max_abs_err"] for r in
+                           [*k5.values(), *k5_path.values()]),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": None,
@@ -3491,6 +3932,11 @@ def main():
     for name, r in k5.items():
         if name != "mamba2_bf16":
             kernels[-1][f"at_{name}"] = r
+    for a, r in k5_path.items():
+        kernels[-1][f"at_{a}_path"] = r
+    print("[serving] " + json.dumps({a: {k: f[k] for k in (
+        "n_layers", "batch", "prompt", "gen", "info", "init_s", "n_params",
+        "max_diff_ref", "max_diff_step") if k in f} for a, f in fam.items()}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,11 @@ families still to port are listed.
 
 Sources ([verified-tier] per assignment):
   smollm-135m            hf:HuggingFaceTB/SmolLM-135M
+  granite-34b            arXiv:2405.04324
+  deepseek-7b            arXiv:2401.02954
+  chatglm3-6b            arXiv:2406.12793
+  zamba2-1.2b            arXiv:2411.15242
+  mixtral-8x22b          arXiv:2401.04088
   mamba2-1.3b            arXiv:2405.21060
 """
 
@@ -15,6 +20,11 @@ import importlib
 
 ARCHS = [
     "smollm-135m",
+    "granite-34b",
+    "deepseek-7b",
+    "chatglm3-6b",
+    "zamba2-1.2b",
+    "mixtral-8x22b",
     "mamba2-1.3b",
 ]
 

@@ -9,11 +9,12 @@ Inputs are numpy arrays (``np.asarray`` of a JAX leaf works); outputs on
 the JAX side are numpy arrays.
 
 The language models' parameters (``lm_params_from_jax``/``lm_params_to_jax``)
-are the same rename plus an unstack: the reference keeps the layers as one
-stack with a leading L axis (``layers.attn.wq.w`` is (L, d, H·D)), the port
-one module per layer (``layers.3.attn.wq.w``). bf16 leaves travel as float32
-NumPy arrays (every bf16 value is exact in float32), so the port needs no
-NumPy bf16 type.
+are the same rename plus an unstack: the reference keeps each stack of
+layers as one tree with leading stacked axes (``layers.attn.wq.w`` is
+(L, d, H·D); the hybrid's ``groups.*`` are (G, attn_every, ...)), the port
+one module per layer (``layers.3.attn.wq.w``, ``groups.1.2.mixer.D``).
+bf16 leaves travel as float32 NumPy arrays (every bf16 value is exact in
+float32), so the port needs no NumPy bf16 type.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from torch import nn
 from repro_torch.core import networks as nets
 from repro_torch.device import resolve_device
 from repro_torch.models.decoder import DecoderLM
+from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.ssm import SSMLM
 
 
@@ -114,23 +116,29 @@ def adamw_state_to_jax(opt):
             "step": np.asarray(opt["step"].cpu().numpy(), np.int32)}
 
 
-_LM_MODULES = {"dense": DecoderLM, "ssm": SSMLM}
+_LM_MODULES = {"dense": DecoderLM, "moe": DecoderLM, "ssm": SSMLM,
+               "hybrid": HybridLM}
+# the reference's stacked subtrees: name -> number of leading stacked axes
+_STACKS = {"layers": 1, "dense_layers": 1, "tail": 1, "groups": 2}
 
 
-def lm_params_from_jax(cfg, tree, *, device=None) -> DecoderLM | SSMLM:
-    """The JAX package's decoder or ssm params (nested dict of NumPy arrays,
-    the layer stack with its leading L axis) -> the port's ``DecoderLM`` or
-    ``SSMLM`` (by ``cfg.family``) on ``device`` (None: the CUDA device).
-    bf16 leaves become bf16 tensors, float32 leaves float32 ones."""
+def lm_params_from_jax(cfg, tree, *, device=None) -> nn.Module:
+    """The JAX package's decoder, ssm or hybrid params (nested dict of NumPy
+    arrays, each stack of ``_STACKS`` with its leading stacked axes) -> the
+    port's ``DecoderLM``, ``SSMLM`` or ``HybridLM`` (by ``cfg.family``) on
+    ``device`` (None: the CUDA device). bf16 leaves become bf16 tensors,
+    float32 leaves float32 ones."""
     state = {}
     for name, leaf in flatten_tree(tree).items():
         bf16 = np.asarray(leaf).dtype.name == "bfloat16"
         t = torch.from_numpy(np.array(leaf, np.float32))
         t = t.to(torch.bfloat16) if bf16 else t
-        if name.startswith("layers."):
-            rest = name[len("layers."):]
-            state.update({f"layers.{i}.{rest}": t[i].clone()
-                          for i in range(t.shape[0])})
+        stack, _, rest = name.partition(".")
+        depth = _STACKS.get(stack, 0)
+        if depth:
+            state.update({".".join([stack, *map(str, idx), rest]):
+                          t[idx].clone()
+                          for idx in np.ndindex(*t.shape[:depth])})
         else:
             state[name] = t
     with torch.device("meta"):   # the structure only; no weights drawn
@@ -139,20 +147,26 @@ def lm_params_from_jax(cfg, tree, *, device=None) -> DecoderLM | SSMLM:
     return model.to(resolve_device(device))
 
 
-def lm_params_to_jax(model: DecoderLM | SSMLM):
-    """The port's ``DecoderLM`` or ``SSMLM`` -> the JAX package's nested
-    dict, the layers stacked on a leading L axis, as float32 NumPy arrays
-    (cast bf16 leaves back with ``jnp.asarray(x, jnp.bfloat16)``; float32
-    leaves stay float32; the values are exact)."""
-    flat, layers = {}, {}
+def lm_params_to_jax(model: nn.Module):
+    """The port's ``DecoderLM``, ``SSMLM`` or ``HybridLM`` -> the JAX
+    package's nested dict, each stack's layers stacked on its leading axes,
+    as float32 NumPy arrays (cast bf16 leaves back with
+    ``jnp.asarray(x, jnp.bfloat16)``; float32 leaves stay float32; the
+    values are exact)."""
+    flat, stacks = {}, {}
     for name, p in model.named_parameters():
         arr = p.detach().to(torch.float32).cpu().numpy()
-        if name.startswith("layers."):
-            _, i, rest = name.split(".", 2)
-            layers.setdefault(rest, {})[int(i)] = arr
+        stack = name.split(".", 1)[0]
+        depth = _STACKS.get(stack, 0)
+        if depth:
+            *idx, rest = name.split(".", depth + 1)[1:]
+            stacks.setdefault((stack, rest), {})[tuple(map(int, idx))] = arr
         else:
             flat[name] = arr
-    for rest, per_layer in layers.items():
-        flat[f"layers.{rest}"] = np.stack([per_layer[i] for i in
-                                           range(len(per_layer))])
+    for (stack, rest), per_layer in stacks.items():
+        shape = tuple(max(i[a] for i in per_layer) + 1
+                      for a in range(_STACKS[stack]))
+        flat[f"{stack}.{rest}"] = np.stack(
+            [per_layer[idx] for idx in np.ndindex(*shape)]).reshape(
+                shape + next(iter(per_layer.values())).shape)
     return unflatten_tree(flat)

@@ -1,14 +1,25 @@
 """Batched serving (port of ``repro.launch.serve``): prefill a batch
 of requests, then step the greedy decode loop, on the CUDA device. The
-command line serves with ``attn_backend="pallas"``, the port's
-flash-attention kernel on the prefill of every attention layer; the ssm
-family (mamba2-1.3b) runs the SSD scan kernel on every layer's prefill
-whatever the backend.
+command line serves with ``attn_backend="pallas"`` (the reference's keeps
+each config's backend), the port's flash-attention kernel on the prefill
+of every attention layer, sliding-window ones included (mixtral); the
+Mamba2 layers (mamba2-1.3b, and zamba2-1.2b's beside its shared attention
+block) run the SSD scan kernel on every prefill whatever the backend. The
+archs: smollm-135m, deepseek-7b, granite-34b, chatglm3-6b (dense),
+mixtral-8x22b (moe), mamba2-1.3b (ssm), zamba2-1.2b (hybrid).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --batch 8 --prompt-len 1024 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
       --batch 8 --prompt-len 1024 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+      --batch 8 --prompt-len 1024 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \
+      --batch 8 --prompt-len 1024 --gen 32
+
+mixtral-8x22b and granite-34b do not fit one card at their published
+depth; ``chip_smoke.py`` serves them cut in depth (``cfg.replace(
+n_layers=...)``), at full width.
 """
 
 from __future__ import annotations
@@ -30,15 +41,18 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def serve(cfg, *, batch=4, prompt_len=32, gen=16, seed=0, device=None):
+def serve(cfg, *, batch=4, prompt_len=32, gen=16, seed=0, device=None,
+          params=None):
     """Greedy generation of ``gen`` tokens for ``batch`` random prompts of
     ``prompt_len`` tokens (the reference's NumPy draws from ``seed``) with
-    the port's own parameters from ``seed``. Runs on the CUDA device unless
-    ``device`` names another. Returns (tokens (batch, gen) int32, timings)
-    where the timings are wall seconds ended by a device synchronize."""
+    ``params``, or else the port's own parameters from ``seed``. Runs on
+    the CUDA device unless ``device`` names another. Returns (tokens
+    (batch, gen) int32, timings) where the timings are wall seconds ended
+    by a device synchronize."""
     device = resolve_device(device)
     model = get_model(cfg)
-    params = model.init(seed, device=device)
+    if params is None:
+        params = model.init(seed, device=device)
     rng = np.random.default_rng(seed)
     prompts = {"tokens": torch.from_numpy(
         rng.integers(0, cfg.vocab, size=(batch, prompt_len),
@@ -68,7 +82,8 @@ def serve(cfg, *, batch=4, prompt_len=32, gen=16, seed=0, device=None):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--arch", default="smollm-135m",
+                    help="one of repro_torch.configs.ARCHS")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

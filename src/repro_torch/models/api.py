@@ -1,7 +1,8 @@
 """Uniform model API (port of ``repro.models.api``): ``get_model(cfg)``
 returns a ``Model`` whose methods are plain functions of (params,
-batch/cache). The port runs the dense and ssm families; every other
-family raises NotImplementedError naming ROADMAP.md.
+batch/cache). The port runs the dense, moe (the decoder), ssm and hybrid
+families; every other family raises NotImplementedError naming
+ROADMAP.md.
 
 Model methods
   init(seed, *, device=None) -> params (an nn.Module)
@@ -18,11 +19,13 @@ from functools import partial
 from typing import Any, Callable
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models import decoder, ssm
+from repro_torch.models import decoder, hybrid, ssm
 
 _FAMILY_MODULES = {
     "dense": decoder,
+    "moe": decoder,
     "ssm": ssm,
+    "hybrid": hybrid,
 }
 
 

@@ -1,16 +1,19 @@
 """Transformer decoder (port of ``repro.models.decoder``), the dense
-(llama-style) family: pre-norm blocks of grouped-query attention with the
-standard rope and a SwiGLU MLP, RMSNorm, tied or separate read-out.
+(llama-style) and MoE (mixtral) families: pre-norm blocks of grouped-query
+attention (causal or sliding-window) with the standard or the partial
+rope, a SwiGLU, GELU or MoE feed-forward, RMSNorm, tied or separate
+read-out. An MoE model may lead with a few dense-FFN layers.
 
-The reference scans a stack of layers whose parameters carry a leading L
-axis; here the layers are a ``ModuleList`` run in a Python loop, and the
-serving cache is a list of per-layer KV caches. Parameter names are the
-reference's key paths with the layer index in place of the stacked axis
-(``layers.3.attn.wq.w`` is ``layers.attn.wq.w[3]``), so converting is a
-rename and an unstack (``repro_torch.convert``).
+The reference scans each stack of layers (``dense_layers``, ``layers``)
+whose parameters carry a leading L axis; here a stack is a ``ModuleList``
+run in a Python loop, and the serving cache holds a list of per-layer KV
+caches per stack. Parameter names are the reference's key paths with the
+layer index in place of the stacked axis (``layers.3.attn.wq.w`` is
+``layers.attn.wq.w[3]``), so converting is a rename and an unstack
+(``repro_torch.convert``).
 
-Still to port (ROADMAP.md): the MoE and VLM families, MLA, partial rope
-and M-RoPE, the GELU MLP, and the training objective ``loss_fn``.
+Still to port (ROADMAP.md): the VLM family, MLA, M-RoPE, and the training
+objective ``loss_fn``.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers as nnl
-from repro_torch.nn.rotary import apply_rope
+from repro_torch.nn import moe as nnmoe
+from repro_torch.nn.rotary import apply_partial_rope, apply_rope
 
 NEG_INF = -1e30
 PARAM_DTYPE = torch.bfloat16   # the reference's parameter dtype
@@ -34,13 +38,13 @@ def _unported(what):
 
 
 def _check_supported(cfg):
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise _unported(f"the {cfg.family!r} family")
     if cfg.use_mla:
         raise _unported("MLA")
-    if cfg.rope != "standard":
+    if cfg.rope not in ("standard", "partial"):
         raise _unported(f"rope {cfg.rope!r}")
-    if cfg.mlp != "swiglu":
+    if cfg.mlp not in ("swiglu", "gelu"):
         raise _unported(f"the {cfg.mlp!r} MLP")
 
 
@@ -48,14 +52,18 @@ def _check_supported(cfg):
 # Rope plumbing
 # ---------------------------------------------------------------------------
 
-def _rope_fn(cfg, positions):
-    """Rope closure for full-sequence attention. positions: (B, S)."""
-    return lambda q, k: apply_rope(q, k, positions, theta=cfg.rope_theta)
-
-
 def _rope_fn_decode(cfg):
     """Rope closure for decode: (q, k, pos (B, 1)) -> (q, k)."""
+    if cfg.rope == "partial":
+        return lambda q, k, pos: apply_partial_rope(
+            q, k, pos, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
     return lambda q, k, pos: apply_rope(q, k, pos, theta=cfg.rope_theta)
+
+
+def _rope_fn(cfg, positions):
+    """Rope closure for full-sequence attention. positions: (B, S)."""
+    rope = _rope_fn_decode(cfg)
+    return lambda q, k: rope(q, k, positions)
 
 
 # ---------------------------------------------------------------------------
@@ -74,20 +82,46 @@ class Embedding(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg, *, generator=None):
+    """Attention and a feed-forward: an ``nnmoe.MoE`` where ``moe_ffn``,
+    else the config's dense MLP (the GELU one without biases, as the
+    reference's ``_block_init``)."""
+
+    def __init__(self, cfg, *, moe_ffn=False, generator=None):
         super().__init__()
         self.attn_norm = nnl.RMSNorm(cfg.d_model, dtype=PARAM_DTYPE)
         self.ffn_norm = nnl.RMSNorm(cfg.d_model, dtype=PARAM_DTYPE)
         self.attn = attn.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                    cfg.head_dim, qkv_bias=cfg.qkv_bias,
                                    generator=generator, dtype=PARAM_DTYPE)
-        self.ffn = nnl.SwiGLU(cfg.d_model, cfg.d_ff, generator=generator,
-                              dtype=PARAM_DTYPE)
+        kw = dict(generator=generator, dtype=PARAM_DTYPE)
+        if moe_ffn:
+            self.ffn = nnmoe.MoE(cfg.d_model, cfg.d_ff_expert, cfg.n_experts,
+                                 n_shared=cfg.n_shared_experts,
+                                 d_ff_shared=cfg.d_ff_expert, **kw)
+        elif cfg.mlp == "gelu":
+            self.ffn = nnl.GeluMLP(cfg.d_model, cfg.d_ff_dense or cfg.d_ff,
+                                   use_bias=False, **kw)
+        else:
+            self.ffn = nnl.SwiGLU(cfg.d_model, cfg.d_ff_dense or cfg.d_ff,
+                                  **kw)
+
+
+def _stacks(cfg):
+    """[(stack name, n_layers, moe_ffn)] in execution order: an MoE model's
+    leading dense-FFN layers, then its MoE layers."""
+    if cfg.n_experts:
+        out = []
+        if cfg.n_dense_layers:
+            out.append(("dense_layers", cfg.n_dense_layers, False))
+        out.append(("layers", cfg.n_layers - cfg.n_dense_layers, True))
+        return out
+    return [("layers", cfg.n_layers, False)]
 
 
 class DecoderLM(nn.Module):
-    """The dense decoder's parameters: ``embed.embed``, ``final_norm.scale``,
-    ``lm_head.w`` when the embeddings are not tied, and ``layers.<i>.*``."""
+    """The decoder's parameters: ``embed.embed``, ``final_norm.scale``,
+    ``lm_head.w`` when the embeddings are not tied, and per stack of
+    ``_stacks`` (``dense_layers``, ``layers``) ``<stack>.<i>.*``."""
 
     def __init__(self, cfg, *, generator=None):
         super().__init__()
@@ -99,8 +133,10 @@ class DecoderLM(nn.Module):
             self.lm_head = nnl.Linear(cfg.d_model, cfg.vocab_padded,
                                       use_bias=False, generator=generator,
                                       dtype=PARAM_DTYPE)
-        self.layers = nn.ModuleList(Block(cfg, generator=generator)
-                                    for _ in range(cfg.n_layers))
+        for name, n, moe_ffn in _stacks(cfg):
+            setattr(self, name, nn.ModuleList(
+                Block(cfg, moe_ffn=moe_ffn, generator=generator)
+                for _ in range(n)))
 
 
 def init(cfg, seed=0, *, device=None):
@@ -127,6 +163,14 @@ def _attn_kw(cfg):
                 chunk=cfg.attn_chunk)
 
 
+def _ffn(cfg, p, h):
+    if isinstance(p.ffn, nnmoe.MoE):
+        return nnmoe.moe_apply(p.ffn, h, top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor,
+                               normalize_weights=cfg.moe_normalize)[0]
+    return p.ffn(h)
+
+
 def _block_prefill(cfg, p, x, cache_l, extra):
     positions, mask_pos = extra["positions"], extra["mask_positions"]
     h = p.attn_norm(x, eps=cfg.norm_eps)
@@ -135,7 +179,7 @@ def _block_prefill(cfg, p, x, cache_l, extra):
                                         **_attn_kw(cfg))
     x = x + a
     h = p.ffn_norm(x, eps=cfg.norm_eps)
-    return x + p.ffn(h), cache_l
+    return x + _ffn(cfg, p, h), cache_l
 
 
 def _block_decode(cfg, p, x, cache_l):
@@ -146,7 +190,7 @@ def _block_decode(cfg, p, x, cache_l):
         window=cfg.window or None)
     x = x + a
     h = p.ffn_norm(x, eps=cfg.norm_eps)
-    return x + p.ffn(h), cache_l
+    return x + _ffn(cfg, p, h), cache_l
 
 
 # ---------------------------------------------------------------------------
@@ -181,15 +225,17 @@ def loss_fn(cfg, params, batch):
 
 
 def init_cache(cfg, batch, max_len, *, device=None):
-    """One bf16 KV cache per layer, as the reference's (whatever the
-    parameters' dtype), on ``device`` (None: the CUDA device)."""
+    """Per stack, one bf16 KV cache per layer, as the reference's (whatever
+    the parameters' dtype): a ring of ``window`` slots for sliding-window
+    attention. On ``device`` (None: the CUDA device)."""
     _check_supported(cfg)
     device = resolve_device(device)
-    return {"layers": [attn.init_kv_cache(batch, max_len, cfg.n_kv_heads,
-                                          cfg.head_dim,
-                                          window=cfg.window or None,
-                                          device=device)
-                       for _ in range(cfg.n_layers)]}
+    return {name: [attn.init_kv_cache(batch, max_len, cfg.n_kv_heads,
+                                      cfg.head_dim,
+                                      window=cfg.window or None,
+                                      device=device)
+                   for _ in range(n)]
+            for name, n, _ in _stacks(cfg)}
 
 
 def prefill(cfg, params, batch, cache):
@@ -198,8 +244,9 @@ def prefill(cfg, params, batch, cache):
     x = _embed(cfg, params, batch)
     positions, mask_pos = _positions(cfg, batch)
     extra = {"positions": positions, "mask_positions": mask_pos}
-    for p_l, c_l in zip(params.layers, cache["layers"]):
-        x, _ = _block_prefill(cfg, p_l, x, c_l, extra)
+    for name, _, _ in _stacks(cfg):
+        for p_l, c_l in zip(getattr(params, name), cache[name]):
+            x, _ = _block_prefill(cfg, p_l, x, c_l, extra)
     logits = _readout(cfg, params, x[:, -1:, :])
     return logits[:, 0], cache
 
@@ -207,7 +254,8 @@ def prefill(cfg, params, batch, cache):
 def decode_step(cfg, params, cache, tokens):
     """tokens: (B, 1) -> (logits (B, Vp), cache)."""
     x = nnl.embedding(params.embed.embed, tokens)
-    for p_l, c_l in zip(params.layers, cache["layers"]):
-        x, _ = _block_decode(cfg, p_l, x, c_l)
+    for name, _, _ in _stacks(cfg):
+        for p_l, c_l in zip(getattr(params, name), cache[name]):
+            x, _ = _block_decode(cfg, p_l, x, c_l)
     logits = _readout(cfg, params, x)
     return logits[:, 0], cache

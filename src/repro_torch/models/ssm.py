@@ -122,6 +122,22 @@ def _mamba2_apply_with_state(cfg, p, u, ssd_fn=None):
             {"conv": conv_state, "ssm": final_state})
 
 
+def _block_prefill(cfg, p, x, ssd_fn=None):
+    """One block over the whole sequence from zero state: (x + mixer(norm
+    x), the block's cache after it). Also the hybrid's Mamba2 layer."""
+    h = p.norm(x, eps=cfg.norm_eps)
+    y, cache_l = _mamba2_apply_with_state(cfg, p.mixer, h, ssd_fn)
+    return x + y, cache_l
+
+
+def _block_decode(cfg, p, x, cache_l):
+    """One block, one token: (x + mixer(norm x), the block's cache one
+    token on); the cache given is not written."""
+    h = p.norm(x, eps=cfg.norm_eps)
+    y, cache_l = ssd.mamba2_decode(p.mixer, h, cache_l, **_ssm_kw(cfg))
+    return x + y, cache_l
+
+
 def prefill(cfg, params, batch, cache, *, ssd_fn=None):
     """batch["tokens"] (B, S) -> (last-position logits (B, Vp) float32, the
     cache after S tokens). Every layer starts from zero state: the incoming
@@ -132,9 +148,7 @@ def prefill(cfg, params, batch, cache, *, ssd_fn=None):
     x = nnl.embedding(params.embed.embed, batch["tokens"])
     layers = []
     for p_l in params.layers:
-        h = p_l.norm(x, eps=cfg.norm_eps)
-        y, c_l = _mamba2_apply_with_state(cfg, p_l.mixer, h, ssd_fn)
-        x = x + y
+        x, c_l = _block_prefill(cfg, p_l, x, ssd_fn)
         layers.append(c_l)
     logits = _readout(cfg, params, x[:, -1:, :])
     return logits[:, 0], {"layers": layers,
@@ -146,9 +160,7 @@ def decode_step(cfg, params, cache, tokens):
     x = nnl.embedding(params.embed.embed, tokens)
     layers = []
     for p_l, c_l in zip(params.layers, cache["layers"]):
-        h = p_l.norm(x, eps=cfg.norm_eps)
-        y, c_l = ssd.mamba2_decode(p_l.mixer, h, c_l, **_ssm_kw(cfg))
-        x = x + y
+        x, c_l = _block_decode(cfg, p_l, x, c_l)
         layers.append(c_l)
     logits = _readout(cfg, params, x)
     return logits[:, 0], {"layers": layers, "len": cache["len"] + 1}

@@ -1,6 +1,6 @@
 """The layers the port's networks and language models use (port of
 ``repro.nn.layers``: ``linear``, ``layernorm``, ``rmsnorm``,
-``embedding``, ``embedding_logits`` and ``swiglu``).
+``embedding``, ``embedding_logits``, ``swiglu`` and ``gelu_mlp``).
 
 Weights keep the JAX package's layout — ``w`` is (d_in, d_out) and a layer
 computes ``x @ w + b`` — so a parameter's name and shape are those of the
@@ -70,6 +70,14 @@ def swiglu(gate_w, up_w, down_w, x):
     return (g * (x @ up_w)) @ down_w
 
 
+def gelu_mlp(up_w, up_b, down_w, down_b, x):
+    """down(gelu(up(x))), the two-matrix (GPT-BigCode) MLP, in the input's
+    dtype; ``up_b``/``down_b`` may be None. The gelu is the tanh
+    approximation, ``jax.nn.gelu``'s default."""
+    h = torch.nn.functional.gelu(linear(up_w, up_b, x), approximate="tanh")
+    return linear(down_w, down_b, h)
+
+
 class Linear(nn.Module):
     """``x @ w + b`` with ``w`` (d_in, d_out) drawn from a truncated normal
     (stddev 1/sqrt(d_in) by default) and cast to ``dtype``."""
@@ -119,3 +127,18 @@ class SwiGLU(nn.Module):
 
     def forward(self, x):
         return swiglu(self.gate.w, self.up.w, self.down.w, x)
+
+
+class GeluMLP(nn.Module):
+    """The two-matrix MLP; parameters ``up.{w,b}``, ``down.{w,b}`` (the
+    biases when ``use_bias``, as the reference's ``gelu_mlp_init``)."""
+
+    def __init__(self, d_model, d_ff, *, use_bias=True, generator=None,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = dict(use_bias=use_bias, generator=generator, dtype=dtype)
+        self.up = Linear(d_model, d_ff, **kw)
+        self.down = Linear(d_ff, d_model, **kw)
+
+    def forward(self, x):
+        return gelu_mlp(self.up.w, self.up.b, self.down.w, self.down.b, x)

@@ -1,6 +1,6 @@
 """Rotary position embeddings (port of ``repro.nn.rotary``): the standard
-(llama) rope, the only one the ported models use. Partial rope (chatglm3)
-and M-RoPE (qwen2-vl) are still to port (ROADMAP.md)."""
+(llama) rope and the partial rope (chatglm3 rotates the first half of the
+head dim). M-RoPE (qwen2-vl) is still to port (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -33,3 +33,14 @@ def apply_rope(q, k, positions, *, theta=10000.0):
     inv_freq = rope_frequencies(q.shape[-1], theta=theta, device=q.device)
     cos, sin = _cos_sin(positions, inv_freq, q.dtype)
     return _rotate(q, cos, sin), _rotate(k, cos, sin)
+
+
+def apply_partial_rope(q, k, positions, *, fraction=0.5, theta=10000.0):
+    """ChatGLM3-style: rope on the first ``int(D * fraction)`` dims of each
+    head, with the frequencies taken over those dims; the rest pass
+    through."""
+    rot = int(q.shape[-1] * fraction)
+    inv_freq = rope_frequencies(rot, theta=theta, device=q.device)
+    cos, sin = _cos_sin(positions, inv_freq, q.dtype)
+    return (torch.cat([_rotate(q[..., :rot], cos, sin), q[..., rot:]], -1),
+            torch.cat([_rotate(k[..., :rot], cos, sin), k[..., rot:]], -1))

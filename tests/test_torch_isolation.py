@@ -34,6 +34,11 @@ COPIES = {"transfer/engine.py": "transfer/engine.py",
           "models/config.py": "models/config.py",
           "configs/smollm_135m.py": "configs/smollm_135m.py",
           "configs/mamba2_1_3b.py": "configs/mamba2_1_3b.py",
+          "configs/zamba2_1_2b.py": "configs/zamba2_1_2b.py",
+          "configs/mixtral_8x22b.py": "configs/mixtral_8x22b.py",
+          "configs/deepseek_7b.py": "configs/deepseek_7b.py",
+          "configs/granite_34b.py": "configs/granite_34b.py",
+          "configs/chatglm3_6b.py": "configs/chatglm3_6b.py",
           "configs/registry.py": "configs/registry.py",
           "core/simref.py": "core/simref.py",
           "scenarios/driver.py": "scenarios/driver.py",
