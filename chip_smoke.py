@@ -138,6 +138,17 @@ port's entry points:
  22. dense      the same for deepseek-7b (MHA), granite-34b (MQA, the GELU
                 MLP) and chatglm3-6b (GQA 16:1, partial rope, qkv biases),
                 each at full width with 8 layers (8 prompts of 1024 tokens)
+ 23. training   repro_torch.launch.train at smollm-135m's full width on
+                random weights (8 x 1024 tokens a step, 20 steps): the
+                AutoMDT controller trained by PPO on the card (K1) tuning
+                the input pipeline, async checkpoints through the transfer
+                engine every 10 steps, one injected WorkerFailure after the
+                first; the losses finite, the resumed run equal to an
+                uninterrupted one over the same batches, step ms and
+                tokens/s, one step profiled, each save's seconds and MB/s;
+                the loss on one fixed batch falling at warmup 2; one SMOKE
+                float32 step per family (dense, MoE, ssm, hybrid) on the
+                card against the CPU; K1 held on the controller's operands
 
 It prints each phase's wall time, its findings on earlier lines, one JSON
 line with every kernel's numbers, the nvidia-smi line, and ends with the
@@ -425,6 +436,28 @@ MOE_TOL = 2.0 ** -6
 # neighbouring logits of 8 experts at unit scale (order 0.3), and the
 # gaps at the flips are printed
 MOE_TIE = 0.05
+# phase 23: LM training at smollm-135m's full width on random weights,
+# through repro_torch.launch.train: 8 x 1024 tokens a step, TRAIN_STEPS
+# steps, the AutoMDT controller (PPO on the simulator: K1) tuning the input
+# pipeline, async checkpoints through the engine every TRAIN_CKPT_EVERY
+# steps and one WorkerFailure injected at TRAIN_FAIL_AT, after the first
+# checkpoint
+TRAIN_ARCH = "smollm-135m"
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 20, 10, 13
+TRAIN_WARM_STEPS = 2         # the first steps (allocator, cuBLAS) left out
+# of the steady step time
+TRAIN_MEMO_STEPS, TRAIN_MEMO_WARMUP = 10, 2   # R3's sanity floor: the loss
+# on one fixed batch must fall over these steps at this warmup
+# card against CPU: one SMOKE train step in float32 per family, loss and
+# parameters within TRAIN_AGREE_TOL (TF32 off, as for every phase)
+TRAIN_AGREE_ARCHS = ("smollm-135m", "mixtral-8x22b", "mamba2-1.3b",
+                     "zamba2-1.2b")
+TRAIN_AGREE_TOL = 1e-4
+# K1's operands are captured from this call of the controller's training:
+# 1 reset + 100 exploration probes, then two rounds of 11 and 5 steps in
+TRAIN_K1_CALL = 1 + 100 + 2 * 11 + 5
+
 # device kernel names: every kernel of a library carries its prefix (the
 # float32 and bf16 routes alike); the main paths run the bf16 kernels
 FA_PREFIX, FA_PATH_KERNEL = "flash_attention_", "flash_attention_bf16_kernel"
@@ -3546,6 +3579,164 @@ def phase_family(torch, card, arch, layers, B, P, ref_backend):
     return out
 
 
+def max_state_diff(torch, a, b):
+    """Max abs difference between two {name: tensor} trees, in float32."""
+    return max(float((a[n].float() - b[n].float()).abs().max()) for n in a)
+
+
+def phase_train(torch, card):
+    """Phase 23: full-width smollm-135m training through the port's
+    ``train()``; returns its numbers and K1's row on the controller's
+    operands."""
+    import shutil
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import simulator as sim_mod
+    from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.runtime import WorkerFailure
+
+    cfg = get_config(TRAIN_ARCH)
+    ckpt_dir = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    fired = []
+
+    def chaos(step):
+        if step == TRAIN_FAIL_AT and not fired:
+            fired.append(step)
+            raise WorkerFailure(f"injected at step {step}")
+
+    reset_launches()
+    with Recorder(sim_mod, "sim_interval_batch",
+                  keep=(TRAIN_K1_CALL,)) as rec:
+        state, info = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                            seq=TRAIN_SEQ, ckpt_dir=ckpt_dir,
+                            controller="autotmdt",
+                            ckpt_every=TRAIN_CKPT_EVERY, log_every=0,
+                            seed=0, device="cuda", chaos=chaos)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    rep, losses = info["report"], info["losses"]
+    tag = f"[train] ({card})"
+    print(f"{tag} {TRAIN_ARCH} full width, {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens a step, {TRAIN_STEPS} steps: controller (explore + PPO "
+          f"on the card) {info['controller_s']:.3f} s; launches "
+          f"{json.dumps(launches)} ({rec.n} sim_interval calls)")
+    print(f"{tag} losses {json.dumps(losses)}")
+    if not np.all(np.isfinite(losses)):
+        fail("a non-finite training loss")
+    if (rep.steps_run < TRAIN_STEPS or int(state["opt"]["step"]) != TRAIN_STEPS
+            or latest_step(ckpt_dir) != TRAIN_STEPS or not info["saves"]):
+        fail(f"training ran {rep.steps_run} steps to optimizer step "
+             f"{int(state['opt']['step'])} of {TRAIN_STEPS}, latest "
+             f"checkpoint {latest_step(ckpt_dir)}")
+    if fired != [TRAIN_FAIL_AT] or rep.restarts != 1:
+        fail(f"the injected failure did not restart the run once: "
+             f"{fired}, {rep.restarts} restarts")
+    if launches["sim_interval"] != rec.n or rec.n < TRAIN_K1_CALL + 1:
+        fail(f"K1 launched {launches['sim_interval']} times for {rec.n} "
+             f"calls: the controller's training did not run on the card")
+    if launches["flash_attention"] or launches["ssd_scan"] or \
+            launches["contention"]:
+        fail("a forward-only kernel or K3 ran on the training path")
+
+    steady = info["step_s"][TRAIN_WARM_STEPS:]
+    step_ms = float(np.median(steady)) * 1e3
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    print(f"{tag} step wall ms over {len(steady)} steady steps: median "
+          f"{step_ms}, min {min(steady) * 1e3}, max {max(steady) * 1e3}; "
+          f"{tok_s} tokens/s; every step's s {json.dumps(info['step_s'])}")
+    for sv in info["saves"]:
+        print(f"{tag} async save step {sv['step']}: {sv['bytes']} bytes, "
+              f"snapshot {sv['snapshot_s']} s inline, {sv['seconds']} s on "
+              f"the worker (serialize, sha256, engine, rename) = "
+              f"{sv['bytes'] / MB / sv['seconds']} MB/s")
+    print(f"{tag} restarts {rep.restarts}, checkpoints {rep.checkpoints}, "
+          f"steps run {rep.steps_run}; the pipeline's final threads "
+          f"{info['threads']}")
+
+    # the resumed run against an uninterrupted one over the same batches
+    step_fn = make_train_step(cfg, total_steps=TRAIN_STEPS)
+    ref = init_state(cfg, 0, device="cuda")
+    for c in range(TRAIN_STEPS):
+        ref, _ = step_fn(ref, info["batches"][c])
+    torch.cuda.synchronize()
+    gaps = {part: max_state_diff(torch, a, b) for part, a, b in (
+        ("params", state["params"], ref["params"]),
+        ("m", state["opt"]["m"], ref["opt"]["m"]),
+        ("v", state["opt"]["v"], ref["opt"]["v"]))}
+    # bf16 parameters: a float32 rounding apart in an update may round to
+    # the next bf16 value, one ulp (2^-7 of the value) at most
+    ulps = max(float(((state["params"][n].float() - ref["params"][n].float())
+                      .abs() / (ref["params"][n].float().abs() * 2.0 ** -7
+                                + 1e-30)).max())
+               for n in ref["params"])
+    print(f"{tag} resumed against uninterrupted over the same cursor: max "
+          f"abs diff {json.dumps(gaps)}; params at most {ulps} bf16 ulps")
+    if ulps > 1.0 or gaps["m"] > 1e-6 or gaps["v"] > 1e-9:
+        fail(f"the resumed run differs from the uninterrupted one: {gaps}")
+
+    # one step's profile
+    batch = info["batches"][0]
+    prof = profile_round(torch, lambda: step_fn(ref, batch), ())
+    print(f"{tag} one step profiled: " + json.dumps(prof))
+    del ref
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # R3's sanity floor: one fixed batch, a short warmup
+    memo_fn = make_train_step(cfg, warmup_steps=TRAIN_MEMO_WARMUP,
+                              total_steps=TRAIN_MEMO_STEPS)
+    st = init_state(cfg, 1, device="cuda")
+    memo = []
+    for _ in range(TRAIN_MEMO_STEPS):
+        st, m = memo_fn(st, batch)
+        memo.append(float(m["loss"]))
+    print(f"{tag} one fixed batch, warmup {TRAIN_MEMO_WARMUP}: losses "
+          f"{json.dumps(memo)}")
+    if not memo[-1] < memo[0]:
+        fail("the loss on one fixed batch did not fall")
+    del st
+
+    # one SMOKE step per family, card against CPU, float32
+    agree = {}
+    for arch in TRAIN_AGREE_ARCHS:
+        scfg = get_smoke_config(arch)
+        rows = np.random.default_rng(3).integers(0, scfg.vocab, (2, 33),
+                                                 dtype=np.int32)
+        init = init_state(scfg, 0, device="cpu")
+        init["params"] = {n: p.float() for n, p in init["params"].items()}
+        fn = make_train_step(scfg, warmup_steps=2, total_steps=10)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            st = {"params": {n: p.to(dev) for n, p in init["params"].items()},
+                  "opt": {k: ({n: t.to(dev) for n, t in v.items()}
+                              if isinstance(v, dict) else v.to(dev))
+                          for k, v in init["opt"].items()}}
+            b = {"tokens": torch.from_numpy(rows[:, :-1].copy()).to(dev),
+                 "labels": torch.from_numpy(rows[:, 1:].copy()).to(dev)}
+            new, m = fn(st, b)
+            out[dev] = (float(m["loss"]), {n: p.cpu() for n, p in
+                                           new["params"].items()})
+        agree[arch] = {"loss": abs(out["cuda"][0] - out["cpu"][0]),
+                       "params": max_state_diff(torch, out["cuda"][1],
+                                                out["cpu"][1])}
+    print(f"[train agree] ({card}) one SMOKE float32 step, card vs CPU: "
+          f"{json.dumps(agree)}")
+    bad = {a: g for a, g in agree.items()
+           if not max(g.values()) <= TRAIN_AGREE_TOL}
+    if bad:
+        fail(f"a SMOKE train step on the card disagrees with the CPU: {bad}")
+
+    args, _ = rec.calls[0]
+    k1 = sim_check(torch, "train_controller", *args)
+    k1["launches"] = launches["sim_interval"]
+    print(f"[sim_interval] train_controller E={k1['E']} S={k1['S']}: "
+          f"bitwise; ms={k1['ms']} device_ms={k1['device_ms']} plain_ms="
+          f"{k1['plain_ms']} bound_ms={k1['bound_ms']:.3g} ({k1['bound_by']})")
+    return {"launches": launches, "k1": k1, "step_ms": step_ms,
+            "tokens_per_s": tok_s, "profile": prof, "agree": agree}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3791,6 +3982,9 @@ def main():
             gc.collect()
             torch.cuda.empty_cache()
         lap(phase)
+    # --- 23. LM training: smollm-135m, AutoMDT input, async checkpoints ----
+    tr = phase_train(torch, card)
+    lap(23)
     print(f"[wall] per phase s {json.dumps(walls)}; total "
           f"{sum(walls.values()):.2f} s")
     print(f"[profiler] device_ms windows: {PROFILER_WINDOWS['calls']} "
@@ -3833,7 +4027,9 @@ def main():
         for label in ("plain", "capped"))
     kernels[0]["launches_topology_compact_ppo"] = (
         tsc["ppo_launches"]["sim_interval"])
-    for name, r in {**ft["k1"], **tpf["k1"], **tsc["k1"]}.items():
+    kernels[0]["launches_train"] = tr["launches"]["sim_interval"]
+    for name, r in {**ft["k1"], **tpf["k1"], **tsc["k1"],
+                    "train_controller": tr["k1"]}.items():
         kernels[0][f"at_{name}"] = {k: r[k] for k in (
             "E", "S", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "bound_terms", "launches")}

@@ -11,15 +11,19 @@ it and nothing of JAX. Layers ported so far:
                            and FleetController
   repro_torch.scenarios  — scenario families, ScenarioSpec, the fleet
                            samplers and the fleet evaluation harness
-  repro_torch.runtime    — the heartbeat registry the fleet controller's
-                           health check reads
+  repro_torch.runtime    — heartbeats (the fleet controller's health
+                           check), the straggler detector and the
+                           fault-tolerant trainer
   repro_torch.transfer   — the real 3-stage transfer engine (a copy)
-  repro_torch.checkpoint — atomic, sha256-verified checkpoints of NumPy state
+  repro_torch.checkpoint — atomic, sha256-verified checkpoints through the
+                           transfer engine, blocking or async
+  repro_torch.data       — the AutoMDT-tuned LM input pipeline (a copy)
   repro_torch.nn         — the layers the networks and language models use
-                           (linear, norms, attention, the Mamba2 block)
-  repro_torch.models     — the dense decoder and ssm (mamba2) language
-                           models; repro_torch.launch serves them
-  repro_torch.optim      — AdamW with the reference's formulas
+                           (linear, norms, attention, MoE, the Mamba2 block)
+  repro_torch.models     — the decoder (dense, MoE), ssm (mamba2) and
+                           hybrid (zamba2) language models;
+                           repro_torch.launch serves and trains them
+  repro_torch.optim      — AdamW with the reference's formulas, LR schedules
   repro_torch.kernels    — hand-written Hopper kernels (CUDA C++ in csrc/)
   repro_torch.convert    — parameters and optimizer state to and from the
                            JAX package's layout

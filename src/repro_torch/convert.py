@@ -25,9 +25,7 @@ from torch import nn
 
 from repro_torch.core import networks as nets
 from repro_torch.device import resolve_device
-from repro_torch.models.decoder import DecoderLM
-from repro_torch.models.hybrid import HybridLM
-from repro_torch.models.ssm import SSMLM
+from repro_torch.models.api import MODULES
 
 
 def flatten_tree(tree, prefix=""):
@@ -116,8 +114,6 @@ def adamw_state_to_jax(opt):
             "step": np.asarray(opt["step"].cpu().numpy(), np.int32)}
 
 
-_LM_MODULES = {"dense": DecoderLM, "moe": DecoderLM, "ssm": SSMLM,
-               "hybrid": HybridLM}
 # the reference's stacked subtrees: name -> number of leading stacked axes
 _STACKS = {"layers": 1, "dense_layers": 1, "tail": 1, "groups": 2}
 
@@ -142,7 +138,7 @@ def lm_params_from_jax(cfg, tree, *, device=None) -> nn.Module:
         else:
             state[name] = t
     with torch.device("meta"):   # the structure only; no weights drawn
-        model = _LM_MODULES[cfg.family](cfg)
+        model = MODULES[cfg.family](cfg)
     model.load_state_dict(state, strict=True, assign=True)
     return model.to(resolve_device(device))
 

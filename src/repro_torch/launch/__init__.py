@@ -1,1 +1,1 @@
-"""Serving entry points of the port's language models."""
+"""Serving and training entry points of the port's language models."""

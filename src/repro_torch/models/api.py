@@ -6,7 +6,7 @@ ROADMAP.md.
 
 Model methods
   init(seed, *, device=None) -> params (an nn.Module)
-  loss_fn(params, batch)                            # not ported yet: raises
+  loss_fn(params, batch) -> (loss, {"ce", "z_loss", "aux"})
   init_cache(batch_size, max_len, *, device=None) -> cache
   prefill(params, batch, cache) -> (logits, cache)
   decode_step(params, cache, tokens) -> (logits, cache)
@@ -27,6 +27,9 @@ _FAMILY_MODULES = {
     "ssm": ssm,
     "hybrid": hybrid,
 }
+# the nn.Module that holds each family's parameters
+MODULES = {"dense": decoder.DecoderLM, "moe": decoder.DecoderLM,
+           "ssm": ssm.SSMLM, "hybrid": hybrid.HybridLM}
 
 
 @dataclass

@@ -12,16 +12,22 @@ layer index in place of the stacked axis (``layers.3.attn.wq.w`` is
 ``layers.attn.wq.w[3]``), so converting is a rename and an unstack
 (``repro_torch.convert``).
 
-Still to port (ROADMAP.md): the VLM family, MLA, M-RoPE, and the training
-objective ``loss_fn``.
+``forward`` and ``loss_fn`` are the training path: every block through
+``attention_apply`` (the config's 'full' or 'chunked' backend) and, with
+``cfg.remat``, ``torch.utils.checkpoint`` in place of ``jax.checkpoint``.
+K4 (``attn_backend="pallas"``) is forward-only, so a loss under it raises.
+
+Still to port (ROADMAP.md): the VLM family, MLA and M-RoPE.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
 from repro_torch.nn import attention as attn
@@ -164,11 +170,56 @@ def _attn_kw(cfg):
 
 
 def _ffn(cfg, p, h):
+    """(the feed-forward's output, its MoE aux loss or None when dense)."""
     if isinstance(p.ffn, nnmoe.MoE):
         return nnmoe.moe_apply(p.ffn, h, top_k=cfg.top_k,
                                capacity_factor=cfg.capacity_factor,
-                               normalize_weights=cfg.moe_normalize)[0]
-    return p.ffn(h)
+                               normalize_weights=cfg.moe_normalize)
+    return p.ffn(h), None
+
+
+def _block_apply(cfg, p, x, extra):
+    """One block over the whole sequence (training): (x out, the block's
+    MoE aux loss or None)."""
+    positions, mask_pos = extra["positions"], extra["mask_positions"]
+    h = p.attn_norm(x, eps=cfg.norm_eps)
+    a = attn.attention_apply(p.attn, h, mask_pos,
+                             rope_fn=_rope_fn(cfg, positions),
+                             **_attn_kw(cfg))
+    x = x + a
+    f, aux = _ffn(cfg, p, p.ffn_norm(x, eps=cfg.norm_eps))
+    return x + f, aux
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable``: keep the
+    outputs of matmuls without batch dims, recompute the rest."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def maybe_remat(cfg, fn):
+    """``fn`` under ``torch.utils.checkpoint`` as the config asks (the
+    reference's ``jax.checkpoint`` policies 'full' and 'dots'); the
+    recomputation gives the same values, so only memory changes."""
+    if not cfg.remat or cfg.remat_policy == "none":
+        return fn
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = partial(ckpt.create_selective_checkpoint_contexts,
+                                   _save_matmuls)
+    return lambda *args: ckpt.checkpoint(fn, *args, use_reentrant=False,
+                                         **kw)
+
+
+def check_trainable(cfg):
+    """A loss takes gradients through attention: K4 has none."""
+    if cfg.attn_backend == "pallas":
+        raise NotImplementedError(
+            "attn_backend='pallas' is forward-only (K4 has no backward in "
+            "either package); train with 'full' or 'chunked' (see "
+            "ROADMAP.md)")
 
 
 def _block_prefill(cfg, p, x, cache_l, extra):
@@ -179,7 +230,7 @@ def _block_prefill(cfg, p, x, cache_l, extra):
                                         **_attn_kw(cfg))
     x = x + a
     h = p.ffn_norm(x, eps=cfg.norm_eps)
-    return x + _ffn(cfg, p, h), cache_l
+    return x + _ffn(cfg, p, h)[0], cache_l
 
 
 def _block_decode(cfg, p, x, cache_l):
@@ -190,7 +241,7 @@ def _block_decode(cfg, p, x, cache_l):
         window=cfg.window or None)
     x = x + a
     h = p.ffn_norm(x, eps=cfg.norm_eps)
-    return x + _ffn(cfg, p, h), cache_l
+    return x + _ffn(cfg, p, h)[0], cache_l
 
 
 # ---------------------------------------------------------------------------
@@ -220,8 +271,49 @@ def _readout(cfg, params, x):
     return logits
 
 
+def forward(cfg, params, batch):
+    """Token embeddings -> final hidden states. Returns (x, aux loss)."""
+    _check_supported(cfg)
+    x = _embed(cfg, params, batch)
+    positions, mask_pos = _positions(cfg, batch)
+    extra = {"positions": positions, "mask_positions": mask_pos}
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    fn = maybe_remat(cfg, partial(_block_apply, cfg))
+    for name, _, _ in _stacks(cfg):
+        for p_l in getattr(params, name):
+            x, a = fn(p_l, x, extra)
+            if a is not None:
+                aux_total = aux_total + a
+    return x, aux_total
+
+
+def cross_entropy(cfg, params, batch, x, aux):
+    """The objective on final hidden states ``x``: the mean cross entropy
+    over the padded vocab (padding rows masked by ``_readout``) under the
+    optional ``loss_mask``, plus ``z_loss_coef`` times the mean squared
+    log-partition and ``aux_loss_coef`` times the MoE aux loss. Returns
+    (total, {"ce", "z_loss", "aux"})."""
+    logits = _readout(cfg, params, x)  # (B, S, Vp) float32
+    labels = batch["labels"].long()
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=logits.device)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    ce = ((logz - ll) * mask).sum() / denom
+    z_loss = cfg.z_loss_coef * ((logz ** 2) * mask).sum() / denom
+    total = ce + z_loss + cfg.aux_loss_coef * aux
+    return total, {"ce": ce, "z_loss": z_loss, "aux": aux}
+
+
 def loss_fn(cfg, params, batch):
-    raise _unported("training (loss_fn)")
+    """batch {"tokens", "labels" (B, S) int, optional "loss_mask"} ->
+    (scalar loss, metrics)."""
+    check_trainable(cfg)
+    x, aux = forward(cfg, params, batch)
+    return cross_entropy(cfg, params, batch, x, aux)
 
 
 def init_cache(cfg, batch, max_len, *, device=None):

@@ -16,10 +16,17 @@ Parameter names are the reference's key paths with the stacked axes as
 indices: ``groups.<g>.<i>.*`` is the reference's ``groups.*[g, i]`` and
 ``tail.<i>.*`` its ``tail.*[i]`` (``repro_torch.convert``).
 
-Still to port (ROADMAP.md): training (``forward``, ``loss_fn``).
+``forward`` and ``loss_fn`` are the training path: the Mamba2 layers
+through the plain chunked scan and the shared block through
+``attention_apply`` (the config's 'full' or 'chunked' backend; K4 and K5
+are forward-only, so a loss under ``attn_backend="pallas"`` raises), then
+the decoder's cross entropy; ``cfg.remat`` checkpoints each Mamba2 block
+and each shared-block invocation.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 from torch import nn
@@ -28,7 +35,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import ssm
 from repro_torch.models.decoder import (Embedding, PARAM_DTYPE, _positions,
                                         _readout, _rope_fn, _rope_fn_decode,
-                                        _unported)
+                                        _unported, check_trainable,
+                                        cross_entropy, maybe_remat)
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers as nnl
 from repro_torch.nn import ssd
@@ -124,12 +132,40 @@ def _shared_out(p, x, h, a):
     return x + h
 
 
+def _shared_apply(cfg, p, x, x0, positions, mask_pos):
+    """One invocation of the shared block over the whole sequence."""
+    h = p.in_proj(torch.cat([x, x0], dim=-1))
+    a = attn.attention_apply(p.attn, p.attn_norm(h), mask_pos,
+                             rope_fn=_rope_fn(cfg, positions),
+                             **_attn_kw(cfg))
+    return _shared_out(p, x, h, a)
+
+
 def forward(cfg, params, batch):
-    raise _unported("training (forward)")
+    """Token embeddings -> final hidden states. Returns (x, aux loss 0)."""
+    _check_supported(cfg)
+    G, tail = _group_shape(cfg)
+    x = nnl.embedding(params.embed.embed, batch["tokens"])
+    x0 = x
+    positions, mask_pos = _positions(cfg, batch)
+    mamba_fn = maybe_remat(cfg, partial(ssm._block_apply, cfg))
+    shared_fn = maybe_remat(cfg, partial(_shared_apply, cfg))
+    for g in range(G):
+        for p_l in params.groups[g]:
+            x = mamba_fn(p_l, x)
+        x = shared_fn(params.shared, x, x0, positions, mask_pos)
+    if tail:
+        for p_l in params.tail:
+            x = mamba_fn(p_l, x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def loss_fn(cfg, params, batch):
-    raise _unported("training (loss_fn)")
+    """The decoder's objective (``models.decoder.cross_entropy``) on the
+    hybrid's hidden states."""
+    check_trainable(cfg)
+    x, aux = forward(cfg, params, batch)
+    return cross_entropy(cfg, params, batch, x, aux)
 
 
 def init_cache(cfg, batch, max_len, *, device=None):

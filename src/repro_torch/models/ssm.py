@@ -10,8 +10,12 @@ prefill runs every layer's chunked scan through the SSD kernel (K5,
 ``repro_torch.kernels.ssd_scan``), which also returns the final state the
 decode starts from; decode is the plain single-token recurrence.
 
-Still to port (ROADMAP.md): training (``forward``, ``loss_fn``) and the
-bf16 intra-chunk variant (``ssd_bf16``).
+``forward`` and ``loss_fn`` are the training path, as in the reference:
+every layer through ``mamba2_apply`` with the plain chunked scan
+(``nn.ssd.ssd_chunked``; K5 is forward-only) and the decoder's cross
+entropy; ``cfg.remat`` checkpoints each block.
+
+Still to port (ROADMAP.md): the bf16 intra-chunk variant (``ssd_bf16``).
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models.decoder import (Embedding, PARAM_DTYPE, _readout,
-                                        _unported)
+                                        _unported, cross_entropy,
+                                        maybe_remat)
 from repro_torch.nn import layers as nnl
 from repro_torch.nn import ssd
 
@@ -88,12 +93,28 @@ def init(cfg, seed=0, *, device=None):
 # Model
 # ---------------------------------------------------------------------------
 
+def _block_apply(cfg, p, x):
+    """One block over the whole sequence (training): x + mixer(norm x)."""
+    h = p.norm(x, eps=cfg.norm_eps)
+    return x + ssd.mamba2_apply(p.mixer, h, chunk=cfg.ssm_chunk,
+                                **_ssm_kw(cfg))
+
+
 def forward(cfg, params, batch):
-    raise _unported("training (forward)")
+    """Token embeddings -> final hidden states. Returns (x, aux loss 0)."""
+    _check_supported(cfg)
+    x = nnl.embedding(params.embed.embed, batch["tokens"])
+    fn = maybe_remat(cfg, partial(_block_apply, cfg))
+    for p_l in params.layers:
+        x = fn(p_l, x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def loss_fn(cfg, params, batch):
-    raise _unported("training (loss_fn)")
+    """The decoder's objective (``models.decoder.cross_entropy``) on the
+    ssm's hidden states."""
+    x, aux = forward(cfg, params, batch)
+    return cross_entropy(cfg, params, batch, x, aux)
 
 
 def init_cache(cfg, batch, max_len, *, device=None):

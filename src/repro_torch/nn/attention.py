@@ -11,6 +11,9 @@ Backends
               to 'full', as in the reference.
 'chunked_tri' (the reference's triangular block pairs) is still to port.
 
+``attention_apply`` is the full-sequence path the training losses take;
+``attention_prefill`` and ``attention_decode`` serve.
+
 Shapes: x (B, S, d_model); q (B, S, Hq, D); k/v (B, S, Hkv, D). The KV
 cache is a dict of tensors {"k", "v" (B, slots, Hkv, D), "pos" (B, slots),
 "len" (B,)}; prefill and decode write it IN PLACE and return the same dict
@@ -161,6 +164,26 @@ def _sdpa(q, k, v, q_pos, k_pos, *, backend, mode, window, k_len=None,
         # fall through for cross/decode paths the kernel does not cover
     return sdpa_full(q, k, v, q_pos, k_pos, mode=mode, window=window,
                      k_len=k_len)
+
+
+def attention_apply(params, x, positions, *, n_heads, n_kv_heads, head_dim,
+                    rope_fn=None, mode="causal", window=None, backend="full",
+                    x_kv=None, kv_positions=None, chunk=1024):
+    """Self- or cross-attention over a full sequence (training). The
+    'pallas' backend is the forward-only kernel K4, which has no backward
+    in either package: the training losses refuse it before they get
+    here."""
+    x_kv = x if x_kv is None else x_kv
+    q, k, v = _project_qkv(params, x, x_kv, n_heads, n_kv_heads, head_dim)
+    kv_positions = positions if kv_positions is None else kv_positions
+    if rope_fn is not None:
+        q, k = rope_fn(q, k)
+    q_pos = positions[0] if positions.ndim > 1 else positions
+    k_pos = kv_positions[0] if kv_positions.ndim > 1 else kv_positions
+    out = _sdpa(q, k, v, q_pos, k_pos, backend=backend, mode=mode,
+                window=window, chunk=chunk)
+    B, S = x.shape[:2]
+    return params.wo(out.reshape(B, S, n_heads * head_dim))
 
 
 # ---------------------------------------------------------------------------

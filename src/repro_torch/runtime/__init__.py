@@ -1,1 +1,7 @@
-from repro_torch.runtime.ft import HeartbeatRegistry, WorkerFailure
+from repro_torch.runtime.ft import (
+    HeartbeatRegistry,
+    StragglerDetector,
+    TrainerReport,
+    FaultTolerantTrainer,
+    WorkerFailure,
+)

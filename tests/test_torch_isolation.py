@@ -3,7 +3,9 @@ with JAX blocked and loads nothing of the JAX package, no source under
 ``src/repro_torch`` imports either, and the modules the port copies from
 the JAX package (JAX-free there) run the same code as their originals. The
 config registry is a narrowed copy: the same code apart from the list of
-archs, which holds only the ported ones, and the refusal of the others."""
+archs, which holds only the ported ones, and the refusal of the others;
+the input pipeline is one too, apart from ``next_batch``, which hands out
+torch tensors where the original makes JAX arrays."""
 
 import dataclasses
 
@@ -42,10 +44,14 @@ COPIES = {"transfer/engine.py": "transfer/engine.py",
           "configs/registry.py": "configs/registry.py",
           "core/simref.py": "core/simref.py",
           "scenarios/driver.py": "scenarios/driver.py",
-          "core/online.py": "core/online.py"}
-# narrowed copies: the top-level names whose definitions may differ from
-# the original's (checked by test_registry_narrows_the_reference_registry)
-NARROWED = {"configs/registry.py": ("ARCHS", "_module")}
+          "core/online.py": "core/online.py",
+          "data/pipeline.py": "data/pipeline.py"}
+# narrowed copies: the top-level names (or "Class.method") whose definitions
+# may differ from the original's (the registry's are checked by
+# test_registry_narrows_the_reference_registry; the pipeline's next_batch
+# hands out torch tensors on a device where the original makes JAX arrays)
+NARROWED = {"configs/registry.py": ("ARCHS", "_module"),
+            "data/pipeline.py": ("InputPipeline.next_batch",)}
 # the port's CPU-only twin -> the reference name it stands for: the port's
 # entry point runs on the card by default, the NumPy copy reads it on the host
 HOST_TWINS = {"_always_on_host": "always_on"}
@@ -86,14 +92,19 @@ def test_no_source_imports_jax_or_the_reference_package():
 def _code(path, drop=()):
     """The module's code as an AST dump, import names and module-path
     strings normalised from repro_torch to repro and host twins to their
-    names, docstrings and the top-level definitions of ``drop`` dropped
-    (comments never reach the AST): what the copy runs, not how it is
-    worded."""
+    names, docstrings and the definitions of ``drop`` (top-level names and
+    "Class.method") dropped (comments never reach the AST): what the copy
+    runs, not how it is worded."""
     tree = ast.parse(path.read_text())
     tree.body = [n for n in tree.body if not (
         isinstance(n, ast.FunctionDef) and n.name in drop
         or isinstance(n, ast.Assign) and any(
             isinstance(t, ast.Name) and t.id in drop for t in n.targets))]
+    for cls in tree.body:
+        if isinstance(cls, ast.ClassDef):
+            cls.body = [n for n in cls.body if not (
+                isinstance(n, ast.FunctionDef)
+                and f"{cls.name}.{n.name}" in drop)]
     for node in ast.walk(tree):
         if (isinstance(node, ast.Constant) and isinstance(node.value, str)
                 and node.value.startswith("repro_torch.")):
@@ -176,8 +187,17 @@ def test_checkpoint_round_trips_and_keeps_the_newest(tmp_path):
 
 
 def test_checkpoint_refuses_the_unported_engine_save(tmp_path):
+    """The save through the transfer engine raised NotImplementedError
+    until the training slice ported it; it is now the default, as in the
+    reference, and writes the direct save's bytes and sha256."""
     from repro_torch.checkpoint import save_checkpoint, latest_step
-    with pytest.raises(NotImplementedError):
-        save_checkpoint(str(tmp_path), {"a": np.zeros(2)}, 1,
-                        use_engine=True)
-    assert latest_step(str(tmp_path)) is None
+    state = {"a": np.arange(1000, dtype=np.float32),
+             "b": {"c": np.int32(5)}}
+    paths = [save_checkpoint(str(tmp_path / name), state, 1, chunk_bytes=512,
+                             **kw)
+             for name, kw in (("engine", {}),
+                              ("direct", dict(use_engine=False)))]
+    blobs = [open(os.path.join(p, f), "rb").read() for p in paths
+             for f in ("ckpt.bin", "manifest.json")]
+    assert blobs[0] == blobs[2] and blobs[1] == blobs[3]
+    assert latest_step(str(tmp_path / "engine")) == 1

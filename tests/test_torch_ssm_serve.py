@@ -29,6 +29,7 @@ from repro_torch import convert
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch.serve import serve
+from repro_torch.launch.steps import init_state
 from repro_torch.models import get_model, ssm
 from repro_torch.nn.ssd import ssd_chunked
 
@@ -182,14 +183,31 @@ def test_init_has_the_reference_structure():
 
 def test_unported_parts_raise_and_nothing_falls_back_to_the_cpu(
         monkeypatch):
+    """``loss_fn`` and ``ssm.forward`` raised NotImplementedError until the
+    training slice was ported; they now run, and the loss on the port's own
+    float32 parameters equals the reference's on the same values within
+    1e-5. ``ssd_bf16`` still raises, and no entry point, the new train
+    state included, falls back to the CPU unasked."""
     cfg = get_smoke_config(ARCH)
     m = get_model(cfg)
+    params = m.init(0, device="cpu").float()
+    row = np.random.default_rng(5).integers(0, cfg.vocab, (B, S + 1),
+                                            dtype=np.int32)
+    batch = {"tokens": row[:, :-1].copy(), "labels": row[:, 1:].copy()}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with torch.no_grad():
+        loss, _ = m.loss_fn(params, tb)
+        x, aux = ssm.forward(cfg, params, tb)
+    assert x.shape == (B, S, cfg.d_model) and float(aux) == 0.0
+    jp = jax.tree.map(jnp.asarray, convert.lm_params_to_jax(params))
+    j_loss, _ = jax.jit(j_get_model(j_smoke(ARCH)).loss_fn)(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(loss), float(j_loss), rtol=1e-5)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        m.loss_fn(None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ssm.forward(cfg, None, None)
+        get_model(cfg.replace(ssd_bf16=True)).init(0, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: m.init(0), lambda: m.init_cache(2, 8),
-                 lambda: serve(cfg, batch=1, prompt_len=4, gen=1)):
+                 lambda: serve(cfg, batch=1, prompt_len=4, gen=1),
+                 lambda: init_state(cfg, 0)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
