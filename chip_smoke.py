@@ -149,6 +149,16 @@ port's entry points:
                 the loss on one fixed batch falling at warmup 2; one SMOKE
                 float32 step per family (dense, MoE, ssm, hybrid) on the
                 card against the CPU; K1 held on the controller's operands
+ 24. last archs phase 20's checks for seamless-m4t-large-v2 (enc-dec, 24 +
+                24 layers as published: K4 on the decoder's self-attention,
+                24 launches a prefill, 8 x 256 frames), qwen2-vl-72b (4 of
+                80 layers at full width, the first 256 of 1024 tokens
+                vision embeddings; K4 at 64 q over 8 kv heads of 128; one
+                more prefill with a real 16 x 16 (t, h, w) grid against
+                'full') and deepseek-v2-236b (1 of 60 layers at full width:
+                MLA on its own 'chunked' backend, no K4, against 'full'; a
+                'pallas' MLA config raises; the capacity dispatch of 160
+                experts, top-6, against the dense oracle)
 
 It prints each phase's wall time, its findings on earlier lines, one JSON
 line with every kernel's numbers, the nvidia-smi line, and ends with the
@@ -408,14 +418,23 @@ SSM_E2E_ATOL = 2 * SERVE_ATOL
 # parameters in all; the dense configs 8 layers each); mixtral's prompts
 # are longer than its 4096 window, and its reference backend is its
 # config's 'chunked', since 'full' would hold every layer's 6144 x 6144
-# scores
+# scores. Phase 24: seamless as published (24 + 24 layers, 1.6e9
+# parameters), qwen2-vl cut to 4 of 80 layers and deepseek-v2 to 1 of 60
+# (6.0e9 and 5.0e9 parameters at full width; neither fits the card whole)
 FAMILY_SERVE = {
     20: {"zamba2-1.2b": (None, 8, 1024, "full")},
     21: {"mixtral-8x22b": (2, 2, 6144, "chunked")},
     22: {"deepseek-7b": (8, 8, 1024, "full"),
          "granite-34b": (8, 8, 1024, "full"),
          "chatglm3-6b": (8, 8, 1024, "full")},
+    24: {"seamless-m4t-large-v2": (None, 8, 1024, "full"),
+         "qwen2-vl-72b": (4, 8, 1024, "full"),
+         "deepseek-v2-236b": (1, 8, 1024, "full")},
 }
+# phase 24: qwen2-vl's vision tokens as a VLM_GRID x VLM_GRID (h, w) grid
+# at t = 0, the text going on from the grid's largest id + 1 on all three
+# M-RoPE sections
+VLM_GRID = 16
 # the plain K4 version materializes (B, Hq, S, Skv) float32 scores; above
 # this many bytes it runs one kv head's group of q heads at a time (the
 # same function: no head reads another's keys)
@@ -3254,11 +3273,37 @@ def phase_topology_scale(torch):
 
 def expected_prefill_launches(cfg):
     """K4 and K5 launches of one prefill: K4 once per attention layer (the
-    hybrid: once per shared-block invocation), K5 once per Mamba2 layer."""
+    hybrid: once per shared-block invocation; the enc-dec: once per decoder
+    layer, whose causal self-attention alone runs it; MLA never), K5 once
+    per Mamba2 layer."""
     if cfg.family == "hybrid":
         return {"flash_attention": cfg.n_layers // cfg.attn_every,
                 "ssd_scan": cfg.n_layers}
+    if cfg.family == "encdec":
+        return {"flash_attention": cfg.n_dec_layers, "ssd_scan": 0}
+    if cfg.use_mla:
+        return {"flash_attention": 0, "ssd_scan": 0}
     return {"flash_attention": cfg.n_layers, "ssd_scan": 0}
+
+
+def vlm_grid_positions(torch, B, P, grid):
+    """(3, B, P) M-RoPE ids: t = 0 and (h, w) over a grid x grid block for
+    the first grid² tokens, then text from grid on all three sections."""
+    V = grid * grid
+    i = torch.arange(P, dtype=torch.int32, device="cuda")
+    text = grid + i - V
+    ids = torch.stack([torch.where(i < V, 0, text),
+                       torch.where(i < V, i // grid, text),
+                       torch.where(i < V, i % grid, text)])
+    return ids[:, None].expand(3, B, P)
+
+
+def fa_path_errors(torch, calls, real):
+    """K4 (``real``) on every recorded call's operands against its plain
+    version: the max abs error of each."""
+    return [float((real(q, k, v, **kw).float() - fa_plain(
+        torch, q, k, v, kw.get("window")).float()).abs().max())
+        for (q, k, v), kw in calls]
 
 
 def near_top(torch, logits, other):
@@ -3310,24 +3355,29 @@ def routing_flips(torch, a, b, rows):
 
 
 def phase_family(torch, card, arch, layers, B, P, ref_backend):
-    """20-22. One arch of FAMILY_SERVE served through serve() at full width
-    with the 'pallas' backend on weights drawn from SERVE_SEED, counting
-    K4's and K5's launches; then, on the same weights and prompts: finite
+    """20-22, 24. One arch of FAMILY_SERVE served through serve() at full
+    width with the backend the command line serves (``served_config``:
+    'pallas', or an MLA config's own) on weights drawn from SERVE_SEED and
+    serve()'s prompts (``draw_prompts``: tokens, and the enc-dec's frames
+    or the VLM's vision embeddings), counting K4's and K5's launches; then,
+    on the same weights and prompts: finite
     logits, the greedy token serve() chose, the launches of one prefill
     (K4 and K5 held on every call's operands, timed on the first) and of
     one decode step (none), agreement with ``ref_backend``, decode against
     a longer prefill; the hybrid's K5 held on every Mamba2 layer's inputs
     and its logits against a prefill through the plain scan; the MoE's
     capacity dispatch with nothing dropped against the dense oracle on a
-    layer input of the path; a profile of one prefill and one decode
-    step."""
+    layer input of the path; the VLM's prefill on a real (t, h, w) grid
+    through K4 against ``ref_backend``; an MLA config under 'pallas'
+    refused; a profile of one prefill and one decode step."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve import (draw_prompts, prompts_on, serve,
+                                          served_config)
     from repro_torch.models import get_model, ssm as ssm_model
     from repro_torch.nn import attention as attn_mod, moe as moe_mod
     from repro_torch.nn.ssd import ssd_chunked
     from repro_torch.kernels.ssd_scan import ops as k5_ops
-    cfg = get_config(arch).replace(attn_backend="pallas")
+    cfg = served_config(get_config(arch))
     if layers:
         cfg = cfg.replace(n_layers=layers)
     G = SERVE_GEN
@@ -3343,11 +3393,19 @@ def phase_family(torch, card, arch, layers, B, P, ref_backend):
                        params=params)
     torch.cuda.synchronize()
     launches = read_launches()
-    print(f"[{arch}] {cfg.family}, {cfg.n_layers} layers (published "
-          f"{get_config(arch).n_layers}), d_model {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, window "
+    depth = (f"{cfg.n_enc_layers} + {cfg.n_dec_layers} layers"
+             if cfg.family == "encdec" else
+             f"{cfg.n_layers} layers (published "
+             f"{get_config(arch).n_layers})")
+    heads = (f"MLA: {cfg.n_heads} heads, q/k {cfg.nope_head_dim} + "
+             f"{cfg.rope_head_dim}, v {cfg.v_head_dim}, kv_lora "
+             f"{cfg.kv_lora}" if cfg.use_mla else
+             f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}")
+    print(f"[{arch}] {cfg.family}, {depth}, d_model {cfg.d_model}, "
+          f"{heads}, window "
           f"{cfg.window or None}, vocab {cfg.vocab}, {n_params} parameters "
-          f"drawn on the host in {init_s:.2f} s, bf16, attn_backend=pallas:"
+          f"drawn on the host in {init_s:.2f} s, bf16, attn_backend="
+          f"{cfg.attn_backend}:"
           f" {B} prompts x {P} tokens, {G} greedy tokens each; prefill "
           f"{info['prefill_s']:.4f} s, decode {info['decode_s']:.4f} s = "
           f"{info['tok_per_s']:.1f} tokens/s on {card}; launches "
@@ -3360,10 +3418,9 @@ def phase_family(torch, card, arch, layers, B, P, ref_backend):
         fail(f"{arch}: serving launched {json.dumps(launches)}, expected "
              f"{json.dumps(expect)} (one prefill) and no other")
 
-    rng = np.random.default_rng(SERVE_SEED)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, P),
-                                           dtype=np.int32)).cuda()
-    batch = {"tokens": tokens}
+    batch = prompts_on(draw_prompts(cfg, B, P, SERVE_SEED), "cuda")
+    tokens = batch["tokens"]
+    short_batch = {**batch, "tokens": tokens[:, :-1]}
     layer_ratios = []
 
     def held_against_plain(x, dt, A, B_, C, *, chunk):
@@ -3409,12 +3466,11 @@ def phase_family(torch, card, arch, layers, B, P, ref_backend):
         with Recorder(moe_mod, "moe_apply") as long_rec:
             long_ = (cm.prefill(params, batch, cm.init_cache(B, P + G))[0]
                      if moe_cfg else logits)
-        short, c2 = cm.prefill(params, {"tokens": tokens[:, :-1]},
-                               cm.init_cache(B, P + G))
+        short, c2 = cm.prefill(params, short_batch, cm.init_cache(B, P + G))
         with Recorder(moe_mod, "moe_apply") as dec_rec:
             consist, _ = cm.decode_step(params, c2, tokens[:, -1:])
         if moe_cfg is not None:   # the path's own capacity, for the record
-            short_p, c3 = model.prefill(params, {"tokens": tokens[:, :-1]},
+            short_p, c3 = model.prefill(params, short_batch,
                                         model.init_cache(B, P + G))
             consist_path, _ = model.decode_step(params, c3, tokens[:, -1:])
         if hybrid:
@@ -3458,7 +3514,7 @@ def phase_family(torch, card, arch, layers, B, P, ref_backend):
     print(f"[{arch} check] logits finite {finite}; prefill launches "
           f"{json.dumps(n_prefill)}, decode step launches "
           f"{json.dumps(n_decode)}; serve's first tokens reproduced "
-          f"{same_first}; pallas vs {ref_backend}: max abs diff "
+          f"{same_first}; {cfg.attn_backend} vs {ref_backend}: max abs diff "
           f"{out['max_diff_ref']:.4g}, mean {float(d_ref.mean()):.4g}, "
           f"argmax agree "
           f"{float((logits.argmax(-1) == logits_ref.argmax(-1)).float().mean()):.3f}"
@@ -3481,8 +3537,8 @@ def phase_family(torch, card, arch, layers, B, P, ref_backend):
         fail(f"{arch}: the same weights and prompts did not reproduce "
              f"serve's first tokens")
     if not out["max_diff_ref"] <= SERVE_ATOL:
-        fail(f"{arch}: the pallas and {ref_backend} backends differ by "
-             f"{out['max_diff_ref']} > {SERVE_ATOL}")
+        fail(f"{arch}: the {cfg.attn_backend} and {ref_backend} backends "
+             f"differ by {out['max_diff_ref']} > {SERVE_ATOL}")
     if not step_ok:
         fail(f"{arch}: a decode step disagrees with the longer prefill")
     if moe_cfg is not None:
@@ -3544,22 +3600,62 @@ def phase_family(torch, card, arch, layers, B, P, ref_backend):
         if not (np.isfinite(err) and err <= MOE_TOL * scale):
             fail(f"{arch}: moe_apply differs from its dense oracle by {err}")
 
-    fa_errs = []
-    for (q, k, v), kw in fa_rec.calls:
-        got = fa_rec.real(q, k, v, **kw)
-        fa_errs.append(float((got.float() - fa_plain(
-            torch, q, k, v, kw.get("window")).float()).abs().max()))
+    if cfg.use_mla:
+        try:
+            get_model(cfg.replace(attn_backend="pallas")).init_cache(B, P)
+        except NotImplementedError as e:
+            print(f"[{arch} check] MLA under 'pallas' refused: {e}")
+        else:
+            fail(f"{arch}: MLA under 'pallas' was not refused")
+
+    fa_errs = fa_path_errors(torch, fa_rec.calls, fa_rec.real)
     print(f"[{arch} attention] K4 vs its plain version on the "
           f"{len(fa_errs)} calls of one prefill: max abs err "
-          f"{max(fa_errs):.3g} (limit {FA_TOL['bfloat16']})")
+          f"{max(fa_errs, default=0.0):.3g} (limit {FA_TOL['bfloat16']})")
     if (len(fa_errs) != expect["flash_attention"]
-            or not max(fa_errs) <= FA_TOL["bfloat16"]):
+            or not max(fa_errs, default=0.0) <= FA_TOL["bfloat16"]):
         fail(f"{arch}: K4 disagrees with its plain version on the path's "
              f"operands: {fa_errs}")
-    (q, k, v), kw = fa_rec.calls[0]
-    out["k4"] = fa_row(torch, f"{arch}_path", q, k, v, kw.get("window"))
-    out["k4"]["max_abs_err_path"] = max(fa_errs)
+    if fa_errs:
+        (q, k, v), kw = fa_rec.calls[0]
+        out["k4"] = fa_row(torch, f"{arch}_path", q, k, v, kw.get("window"))
+        out["k4"]["max_abs_err_path"] = max(fa_errs)
     del fa_rec, ssd_rec, moe_rec
+
+    if cfg.family == "vlm":
+        # serve()'s text ids are equal on the three sections, where M-RoPE
+        # is the standard rope; a real grid makes each section count
+        grid = {**batch, "positions_thw": vlm_grid_positions(
+            torch, B, P, VLM_GRID)}
+        ref_m = get_model(cfg.replace(attn_backend=ref_backend))
+        with torch.inference_mode():
+            reset_launches()
+            with Recorder(attn_mod, "flash_attention") as grid_rec:
+                g_logits, _ = model.prefill(params, grid,
+                                            model.init_cache(B, P + G))
+                torch.cuda.synchronize()
+            n_grid = read_launches()["flash_attention"]
+            g_ref, _ = ref_m.prefill(params, grid, ref_m.init_cache(B, P + G))
+            torch.cuda.synchronize()
+        g_errs = fa_path_errors(torch, grid_rec.calls, grid_rec.real)
+        del grid_rec
+        d_grid = (g_logits - g_ref)[:, live].abs()
+        moved = float((g_logits - logits)[:, live].abs().max())
+        out.update(grid_launches=n_grid, max_diff_grid=float(d_grid.max()),
+                   grid_vs_text=moved, k4_err_grid=max(g_errs))
+        print(f"[{arch} grid] {VLM_GRID} x {VLM_GRID} (t, h, w) grid for the"
+              f" first {VLM_GRID ** 2} tokens: K4 launched {n_grid} times, "
+              f"within {max(g_errs):.3g} of its plain version on every call;"
+              f" pallas vs {ref_backend}: max abs diff "
+              f"{out['max_diff_grid']:.4g}; the grid moved the logits by up "
+              f"to {moved:.4g} from the text positions'")
+        if not (n_grid == expect["flash_attention"] == len(g_errs)
+                and max(g_errs) <= FA_TOL["bfloat16"]
+                and out["max_diff_grid"] <= SERVE_ATOL
+                and bool(torch.isfinite(g_logits).all())):
+            fail(f"{arch}: the grid prefill launched K4 {n_grid} times, "
+                 f"errors {g_errs}, or differs from {ref_backend} by "
+                 f"{out['max_diff_grid']}")
 
     def one_prefill():
         with torch.inference_mode():
@@ -3974,17 +4070,25 @@ def main():
     # --- 19. topology scale-out: the compact-active-set path ----------------
     tsc = phase_topology_scale(torch)
     lap(19)
-    # --- 20-22. serving families: zamba2 (K4 + K5), mixtral, dense D=128 ---
     fam = {}
-    for phase, archs in FAMILY_SERVE.items():
-        for arch, spec in archs.items():
+
+    def family_phase(phase):
+        for arch, spec in FAMILY_SERVE[phase].items():
             fam[arch] = phase_family(torch, card, arch, *spec)
             gc.collect()
             torch.cuda.empty_cache()
         lap(phase)
+
+    # --- 20-22. serving families: zamba2 (K4 + K5), mixtral, dense D=128 ---
+    for phase in (20, 21, 22):
+        family_phase(phase)
     # --- 23. LM training: smollm-135m, AutoMDT input, async checkpoints ----
     tr = phase_train(torch, card)
     lap(23)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # --- 24. seamless (enc-dec), qwen2-vl (M-RoPE), deepseek-v2 (MLA) -----
+    family_phase(24)
     print(f"[wall] per phase s {json.dumps(walls)}; total "
           f"{sum(walls.values()):.2f} s")
     print(f"[profiler] device_ms windows: {PROFILER_WINDOWS['calls']} "
@@ -4090,7 +4194,7 @@ def main():
            for a, f in fam.items()},
         "max_abs_err": max([r["max_abs_err"] for r in k4.values()]
                            + [f["k4"]["max_abs_err_path"]
-                              for f in fam.values()]),
+                              for f in fam.values() if "k4" in f]),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
@@ -4103,7 +4207,8 @@ def main():
         if name != "smollm_bf16":
             kernels[-1][f"at_{name}"] = r
     for a, f in fam.items():
-        kernels[-1][f"at_{a}_path"] = f["k4"]
+        if "k4" in f:
+            kernels[-1][f"at_{a}_path"] = f["k4"]
     k5_path = {a: f["k5"] for a, f in fam.items() if "k5" in f}
     row = k5["mamba2_bf16"]
     kernels.append({
@@ -4132,7 +4237,8 @@ def main():
         kernels[-1][f"at_{a}_path"] = r
     print("[serving] " + json.dumps({a: {k: f[k] for k in (
         "n_layers", "batch", "prompt", "gen", "info", "init_s", "n_params",
-        "max_diff_ref", "max_diff_step") if k in f} for a, f in fam.items()}))
+        "max_diff_ref", "max_diff_step", "max_diff_grid") if k in f}
+        for a, f in fam.items()}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

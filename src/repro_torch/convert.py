@@ -12,7 +12,8 @@ The language models' parameters (``lm_params_from_jax``/``lm_params_to_jax``)
 are the same rename plus an unstack: the reference keeps each stack of
 layers as one tree with leading stacked axes (``layers.attn.wq.w`` is
 (L, d, H·D); the hybrid's ``groups.*`` are (G, attn_every, ...)), the port
-one module per layer (``layers.3.attn.wq.w``, ``groups.1.2.mixer.D``).
+one module per layer (``layers.3.attn.wq.w``, ``groups.1.2.mixer.D``,
+``dec_layers.0.cross_attn.wk.w``, ``layers.0.attn.wuk``).
 bf16 leaves travel as float32 NumPy arrays (every bf16 value is exact in
 float32), so the port needs no NumPy bf16 type.
 """
@@ -115,13 +116,15 @@ def adamw_state_to_jax(opt):
 
 
 # the reference's stacked subtrees: name -> number of leading stacked axes
-_STACKS = {"layers": 1, "dense_layers": 1, "tail": 1, "groups": 2}
+_STACKS = {"layers": 1, "dense_layers": 1, "tail": 1, "groups": 2,
+           "enc_layers": 1, "dec_layers": 1}
 
 
 def lm_params_from_jax(cfg, tree, *, device=None) -> nn.Module:
-    """The JAX package's decoder, ssm or hybrid params (nested dict of NumPy
-    arrays, each stack of ``_STACKS`` with its leading stacked axes) -> the
-    port's ``DecoderLM``, ``SSMLM`` or ``HybridLM`` (by ``cfg.family``) on
+    """The JAX package's decoder (MLA and qkv biases included), ssm, hybrid
+    or enc-dec params (nested dict of NumPy arrays, each stack of
+    ``_STACKS`` with its leading stacked axes) -> the port's module of
+    ``cfg.family`` (``models.api.MODULES``) on
     ``device`` (None: the CUDA device). bf16 leaves become bf16 tensors,
     float32 leaves float32 ones."""
     state = {}
@@ -144,8 +147,8 @@ def lm_params_from_jax(cfg, tree, *, device=None) -> nn.Module:
 
 
 def lm_params_to_jax(model: nn.Module):
-    """The port's ``DecoderLM``, ``SSMLM`` or ``HybridLM`` -> the JAX
-    package's nested dict, each stack's layers stacked on its leading axes,
+    """The port's LM module (``DecoderLM``, ``SSMLM``, ``HybridLM`` or
+    ``EncDecLM``) -> the JAX package's nested dict, each stack's layers stacked on its leading axes,
     as float32 NumPy arrays (cast bf16 leaves back with
     ``jnp.asarray(x, jnp.bfloat16)``; float32 leaves stay float32; the
     values are exact)."""

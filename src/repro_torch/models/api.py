@@ -1,8 +1,8 @@
 """Uniform model API (port of ``repro.models.api``): ``get_model(cfg)``
 returns a ``Model`` whose methods are plain functions of (params,
-batch/cache). The port runs the dense, moe (the decoder), ssm and hybrid
-families; every other family raises NotImplementedError naming
-ROADMAP.md.
+batch/cache). The port runs every family of the reference: dense, moe
+and vlm (the decoder), ssm, hybrid and encdec; an unknown family raises
+NotImplementedError naming ROADMAP.md.
 
 Model methods
   init(seed, *, device=None) -> params (an nn.Module)
@@ -19,17 +19,20 @@ from functools import partial
 from typing import Any, Callable
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models import decoder, hybrid, ssm
+from repro_torch.models import decoder, encdec, hybrid, ssm
 
 _FAMILY_MODULES = {
     "dense": decoder,
     "moe": decoder,
+    "vlm": decoder,
     "ssm": ssm,
     "hybrid": hybrid,
+    "encdec": encdec,
 }
 # the nn.Module that holds each family's parameters
 MODULES = {"dense": decoder.DecoderLM, "moe": decoder.DecoderLM,
-           "ssm": ssm.SSMLM, "hybrid": hybrid.HybridLM}
+           "vlm": decoder.DecoderLM, "ssm": ssm.SSMLM,
+           "hybrid": hybrid.HybridLM, "encdec": encdec.EncDecLM}
 
 
 @dataclass
@@ -45,8 +48,8 @@ class Model:
 def get_model(cfg: ModelConfig) -> Model:
     mod = _FAMILY_MODULES.get(cfg.family)
     if mod is None:
-        raise NotImplementedError(f"the {cfg.family!r} family is not ported "
-                                  f"yet (see ROADMAP.md)")
+        raise NotImplementedError(f"unknown family {cfg.family!r} (see "
+                                  f"ROADMAP.md)")
     return Model(
         cfg=cfg,
         init=partial(mod.init, cfg),

@@ -1,8 +1,13 @@
 """Transformer decoder (port of ``repro.models.decoder``), the dense
-(llama-style) and MoE (mixtral) families: pre-norm blocks of grouped-query
-attention (causal or sliding-window) with the standard or the partial
-rope, a SwiGLU, GELU or MoE feed-forward, RMSNorm, tied or separate
-read-out. An MoE model may lead with a few dense-FFN layers.
+(llama-style), MoE (mixtral, deepseek-v2) and VLM-backbone (qwen2-vl)
+families: pre-norm blocks of grouped-query attention (causal or
+sliding-window) with the standard, partial or M-RoPE rope, or of
+multi-head latent attention (``models.mla``), a SwiGLU, GELU or MoE
+feed-forward, RMSNorm, tied or separate read-out. An MoE model may lead
+with a few dense-FFN layers. A VLM batch may carry ``vision_embeds``
+(B, V, d_model), which replace the first V token embeddings, and
+``positions_thw`` (3, B, S), M-RoPE's temporal, height and width ids
+(text positions on all three when absent).
 
 The reference scans each stack of layers (``dense_layers``, ``layers``)
 whose parameters carry a leading L axis; here a stack is a ``ModuleList``
@@ -16,8 +21,8 @@ layer index in place of the stacked axis (``layers.3.attn.wq.w`` is
 ``attention_apply`` (the config's 'full' or 'chunked' backend) and, with
 ``cfg.remat``, ``torch.utils.checkpoint`` in place of ``jax.checkpoint``.
 K4 (``attn_backend="pallas"``) is forward-only, so a loss under it raises.
-
-Still to port (ROADMAP.md): the VLM family, MLA and M-RoPE.
+MLA has no K4 route (``models.mla``): under 'pallas' it raises. The losses
+of the VLM and MLA models are still to port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -30,10 +35,12 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
+from repro_torch.models import mla
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers as nnl
 from repro_torch.nn import moe as nnmoe
-from repro_torch.nn.rotary import apply_partial_rope, apply_rope
+from repro_torch.nn.rotary import (apply_mrope, apply_partial_rope,
+                                   apply_rope, text_mrope_positions)
 
 NEG_INF = -1e30
 PARAM_DTYPE = torch.bfloat16   # the reference's parameter dtype
@@ -44,11 +51,11 @@ def _unported(what):
 
 
 def _check_supported(cfg):
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise _unported(f"the {cfg.family!r} family")
     if cfg.use_mla:
-        raise _unported("MLA")
-    if cfg.rope not in ("standard", "partial"):
+        mla.check_backend(cfg, cfg.attn_backend)
+    if cfg.rope not in ("standard", "partial", "mrope"):
         raise _unported(f"rope {cfg.rope!r}")
     if cfg.mlp not in ("swiglu", "gelu"):
         raise _unported(f"the {cfg.mlp!r} MLP")
@@ -59,15 +66,25 @@ def _check_supported(cfg):
 # ---------------------------------------------------------------------------
 
 def _rope_fn_decode(cfg):
-    """Rope closure for decode: (q, k, pos (B, 1)) -> (q, k)."""
+    """Rope closure for decode: (q, k, pos (B, 1)) -> (q, k). M-RoPE gives
+    the cache position to all three sections, as the reference does."""
     if cfg.rope == "partial":
         return lambda q, k, pos: apply_partial_rope(
             q, k, pos, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
+    if cfg.rope == "mrope":
+        return lambda q, k, pos: apply_mrope(
+            q, k, pos[None].expand(3, *pos.shape),
+            sections=cfg.mrope_sections, theta=cfg.rope_theta)
     return lambda q, k, pos: apply_rope(q, k, pos, theta=cfg.rope_theta)
 
 
 def _rope_fn(cfg, positions):
-    """Rope closure for full-sequence attention. positions: (B, S)."""
+    """Rope closure for full-sequence attention. positions: (B, S), or
+    (3, B, S) for M-RoPE."""
+    if cfg.rope == "mrope":
+        return lambda q, k: apply_mrope(q, k, positions,
+                                        sections=cfg.mrope_sections,
+                                        theta=cfg.rope_theta)
     rope = _rope_fn_decode(cfg)
     return lambda q, k: rope(q, k, positions)
 
@@ -88,17 +105,22 @@ class Embedding(nn.Module):
 
 
 class Block(nn.Module):
-    """Attention and a feed-forward: an ``nnmoe.MoE`` where ``moe_ffn``,
-    else the config's dense MLP (the GELU one without biases, as the
-    reference's ``_block_init``)."""
+    """Attention (``mla.MLA`` where ``cfg.use_mla``) and a feed-forward: an
+    ``nnmoe.MoE`` where ``moe_ffn``, else the config's dense MLP (the GELU
+    one without biases, as the reference's ``_block_init``)."""
 
     def __init__(self, cfg, *, moe_ffn=False, generator=None):
         super().__init__()
         self.attn_norm = nnl.RMSNorm(cfg.d_model, dtype=PARAM_DTYPE)
         self.ffn_norm = nnl.RMSNorm(cfg.d_model, dtype=PARAM_DTYPE)
-        self.attn = attn.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                                   cfg.head_dim, qkv_bias=cfg.qkv_bias,
-                                   generator=generator, dtype=PARAM_DTYPE)
+        if cfg.use_mla:
+            self.attn = mla.MLA(cfg, generator=generator, dtype=PARAM_DTYPE)
+        else:
+            self.attn = attn.Attention(cfg.d_model, cfg.n_heads,
+                                       cfg.n_kv_heads, cfg.head_dim,
+                                       qkv_bias=cfg.qkv_bias,
+                                       generator=generator,
+                                       dtype=PARAM_DTYPE)
         kw = dict(generator=generator, dtype=PARAM_DTYPE)
         if moe_ffn:
             self.ffn = nnmoe.MoE(cfg.d_model, cfg.d_ff_expert, cfg.n_experts,
@@ -183,9 +205,13 @@ def _block_apply(cfg, p, x, extra):
     MoE aux loss or None)."""
     positions, mask_pos = extra["positions"], extra["mask_positions"]
     h = p.attn_norm(x, eps=cfg.norm_eps)
-    a = attn.attention_apply(p.attn, h, mask_pos,
-                             rope_fn=_rope_fn(cfg, positions),
-                             **_attn_kw(cfg))
+    if cfg.use_mla:
+        a = mla.mla_apply(cfg, p.attn, h, positions,
+                          backend=cfg.attn_backend, chunk=cfg.attn_chunk)
+    else:
+        a = attn.attention_apply(p.attn, h, mask_pos,
+                                 rope_fn=_rope_fn(cfg, positions),
+                                 **_attn_kw(cfg))
     x = x + a
     f, aux = _ffn(cfg, p, p.ffn_norm(x, eps=cfg.norm_eps))
     return x + f, aux
@@ -214,7 +240,11 @@ def maybe_remat(cfg, fn):
 
 
 def check_trainable(cfg):
-    """A loss takes gradients through attention: K4 has none."""
+    """A loss takes gradients through attention: K4 has none. The VLM and
+    MLA losses are not ported yet."""
+    if cfg.family == "vlm" or cfg.use_mla:
+        raise _unported(f"the loss of {cfg.name} (the {cfg.family!r} "
+                        f"family{', MLA' if cfg.use_mla else ''})")
     if cfg.attn_backend == "pallas":
         raise NotImplementedError(
             "attn_backend='pallas' is forward-only (K4 has no backward in "
@@ -225,9 +255,14 @@ def check_trainable(cfg):
 def _block_prefill(cfg, p, x, cache_l, extra):
     positions, mask_pos = extra["positions"], extra["mask_positions"]
     h = p.attn_norm(x, eps=cfg.norm_eps)
-    a, cache_l = attn.attention_prefill(p.attn, h, mask_pos, cache_l,
-                                        rope_fn=_rope_fn(cfg, positions),
-                                        **_attn_kw(cfg))
+    if cfg.use_mla:
+        a, cache_l = mla.mla_prefill(cfg, p.attn, h, positions, cache_l,
+                                     backend=cfg.attn_backend,
+                                     chunk=cfg.attn_chunk)
+    else:
+        a, cache_l = attn.attention_prefill(p.attn, h, mask_pos, cache_l,
+                                            rope_fn=_rope_fn(cfg, positions),
+                                            **_attn_kw(cfg))
     x = x + a
     h = p.ffn_norm(x, eps=cfg.norm_eps)
     return x + _ffn(cfg, p, h)[0], cache_l
@@ -235,10 +270,13 @@ def _block_prefill(cfg, p, x, cache_l, extra):
 
 def _block_decode(cfg, p, x, cache_l):
     h = p.attn_norm(x, eps=cfg.norm_eps)
-    a, cache_l = attn.attention_decode(
-        p.attn, h, cache_l, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.head_dim, rope_fn=_rope_fn_decode(cfg),
-        window=cfg.window or None)
+    if cfg.use_mla:
+        a, cache_l = mla.mla_decode(cfg, p.attn, h, cache_l)
+    else:
+        a, cache_l = attn.attention_decode(
+            p.attn, h, cache_l, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            rope_fn=_rope_fn_decode(cfg), window=cfg.window or None)
     x = x + a
     h = p.ffn_norm(x, eps=cfg.norm_eps)
     return x + _ffn(cfg, p, h)[0], cache_l
@@ -249,13 +287,24 @@ def _block_decode(cfg, p, x, cache_l):
 # ---------------------------------------------------------------------------
 
 def _embed(cfg, params, batch):
-    return nnl.embedding(params.embed.embed, batch["tokens"])
+    x = nnl.embedding(params.embed.embed, batch["tokens"])
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        v = batch["vision_embeds"].to(x.dtype)
+        x = torch.cat([v, x[:, v.shape[1]:]], dim=1)
+    return x
 
 
 def _positions(cfg, batch):
+    """(rope positions (B, S), or (3, B, S) for M-RoPE; mask positions
+    (S,))."""
     B, S = batch["tokens"].shape
-    mask_pos = torch.arange(S, dtype=torch.int32,
-                            device=batch["tokens"].device)
+    device = batch["tokens"].device
+    mask_pos = torch.arange(S, dtype=torch.int32, device=device)
+    if cfg.rope == "mrope":
+        pos = batch.get("positions_thw")
+        if pos is None:
+            pos = text_mrope_positions(B, S, device=device)
+        return pos, mask_pos
     return mask_pos[None].expand(B, S), mask_pos
 
 
@@ -317,17 +366,21 @@ def loss_fn(cfg, params, batch):
 
 
 def init_cache(cfg, batch, max_len, *, device=None):
-    """Per stack, one bf16 KV cache per layer, as the reference's (whatever
-    the parameters' dtype): a ring of ``window`` slots for sliding-window
-    attention. On ``device`` (None: the CUDA device)."""
+    """Per stack, one bf16 cache per layer, as the reference's (whatever
+    the parameters' dtype): a KV cache, a ring of ``window`` slots for
+    sliding-window attention, or MLA's latent cache. On ``device`` (None:
+    the CUDA device)."""
     _check_supported(cfg)
     device = resolve_device(device)
-    return {name: [attn.init_kv_cache(batch, max_len, cfg.n_kv_heads,
-                                      cfg.head_dim,
-                                      window=cfg.window or None,
-                                      device=device)
-                   for _ in range(n)]
-            for name, n, _ in _stacks(cfg)}
+
+    def one():
+        if cfg.use_mla:
+            return mla.init_mla_cache(cfg, batch, max_len, device=device)
+        return attn.init_kv_cache(batch, max_len, cfg.n_kv_heads,
+                                  cfg.head_dim, window=cfg.window or None,
+                                  device=device)
+
+    return {name: [one() for _ in range(n)] for name, n, _ in _stacks(cfg)}
 
 
 def prefill(cfg, params, batch, cache):

@@ -28,6 +28,11 @@ def truncated_normal(shape, stddev, generator=None):
 
 
 def linear(w, b, x):
+    """x @ w + b; mixed types compute in their promoted type, as JAX's
+    (a bf16 input against float32 weights: float32)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
     y = x @ w
     if b is not None:
         y = y + b

@@ -1,6 +1,7 @@
 """Rotary position embeddings (port of ``repro.nn.rotary``): the standard
-(llama) rope and the partial rope (chatglm3 rotates the first half of the
-head dim). M-RoPE (qwen2-vl) is still to port (ROADMAP.md)."""
+(llama) rope, the partial rope (chatglm3 rotates the first half of the
+head dim) and M-RoPE (qwen2-vl: the head dim is split into temporal,
+height and width sections, each rotated by its own position id)."""
 
 from __future__ import annotations
 
@@ -44,3 +45,31 @@ def apply_partial_rope(q, k, positions, *, fraction=0.5, theta=10000.0):
     cos, sin = _cos_sin(positions, inv_freq, q.dtype)
     return (torch.cat([_rotate(q[..., :rot], cos, sin), q[..., rot:]], -1),
             torch.cat([_rotate(k[..., :rot], cos, sin), k[..., rot:]], -1))
+
+
+def apply_mrope(q, k, positions_thw, *, sections=(16, 24, 24),
+                theta=1000000.0):
+    """Qwen2-VL M-RoPE. ``positions_thw``: (3, B, S) temporal, height and
+    width ids. ``sections`` are half-dim section sizes (t, h, w) summing to
+    head_dim // 2; each frequency band takes its position id from the
+    section it falls in."""
+    d = q.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"mrope sections {sections} do not sum to "
+                         f"head_dim // 2 = {d // 2}")
+    inv_freq = rope_frequencies(d, theta=theta, device=q.device)
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=q.device),
+        torch.tensor(sections, device=q.device))             # (d/2,)
+    pos = positions_thw[sec_id].permute(1, 2, 0)              # (B, S, d/2)
+    ang = pos.to(torch.float32) * inv_freq
+    cos = torch.cos(ang)[:, :, None, :].to(q.dtype)
+    sin = torch.sin(ang)[:, :, None, :].to(q.dtype)
+    return _rotate(q, cos, sin), _rotate(k, cos, sin)
+
+
+def text_mrope_positions(batch, seq, offset=0, *, device=None):
+    """For pure-text inputs all three M-RoPE sections share the token
+    index: (3, batch, seq) int32."""
+    p = torch.arange(offset, offset + seq, dtype=torch.int32, device=device)
+    return p[None, None].expand(3, batch, seq)

@@ -2,8 +2,8 @@
 with JAX blocked and loads nothing of the JAX package, no source under
 ``src/repro_torch`` imports either, and the modules the port copies from
 the JAX package (JAX-free there) run the same code as their originals. The
-config registry is a narrowed copy: the same code apart from the list of
-archs, which holds only the ported ones, and the refusal of the others;
+config registry is a copy: the same code and the same archs, apart from
+the refusal of an unknown arch, which names ROADMAP.md;
 the input pipeline is one too, apart from ``next_batch``, which hands out
 torch tensors where the original makes JAX arrays."""
 
@@ -41,16 +41,20 @@ COPIES = {"transfer/engine.py": "transfer/engine.py",
           "configs/deepseek_7b.py": "configs/deepseek_7b.py",
           "configs/granite_34b.py": "configs/granite_34b.py",
           "configs/chatglm3_6b.py": "configs/chatglm3_6b.py",
+          "configs/deepseek_v2_236b.py": "configs/deepseek_v2_236b.py",
+          "configs/qwen2_vl_72b.py": "configs/qwen2_vl_72b.py",
+          "configs/seamless_m4t_large_v2.py":
+              "configs/seamless_m4t_large_v2.py",
           "configs/registry.py": "configs/registry.py",
           "core/simref.py": "core/simref.py",
           "scenarios/driver.py": "scenarios/driver.py",
           "core/online.py": "core/online.py",
           "data/pipeline.py": "data/pipeline.py"}
 # narrowed copies: the top-level names (or "Class.method") whose definitions
-# may differ from the original's (the registry's are checked by
+# may differ from the original's (the registry's refusal is checked by
 # test_registry_narrows_the_reference_registry; the pipeline's next_batch
 # hands out torch tensors on a device where the original makes JAX arrays)
-NARROWED = {"configs/registry.py": ("ARCHS", "_module"),
+NARROWED = {"configs/registry.py": ("_module",),
             "data/pipeline.py": ("InputPipeline.next_batch",)}
 # the port's CPU-only twin -> the reference name it stands for: the port's
 # entry point runs on the card by default, the NumPy copy reads it on the host
@@ -133,12 +137,12 @@ def test_copied_modules_equal_their_originals():
 
 
 def test_registry_narrows_the_reference_registry():
-    """The port's registry lists a subset of the reference's archs, gives
-    each the reference's published and SMOKE configs field for field, and
-    refuses every other arch with a KeyError naming ROADMAP.md."""
+    """The port's registry lists the reference's archs, gives each the
+    reference's published and SMOKE configs field for field, and refuses
+    every other arch with a KeyError naming ROADMAP.md."""
     from repro.configs import registry as ref
     from repro_torch.configs import registry as port
-    assert port.ARCHS and set(port.ARCHS) <= set(ref.ARCHS)
+    assert port.ARCHS == ref.ARCHS
     for arch in port.ARCHS:
         for get in ("get_config", "get_smoke_config"):
             assert (dataclasses.asdict(getattr(port, get)(arch))

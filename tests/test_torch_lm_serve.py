@@ -130,25 +130,41 @@ def test_init_has_the_reference_structure():
 
 
 def test_unported_archs_and_families_raise():
-    """``loss_fn`` raised NotImplementedError until the training slice was
-    ported; it now runs (its parity with the reference is held in
-    ``test_torch_train_loss.py``), and only a loss under the forward-only
-    K4 (``attn_backend="pallas"``) raises. The other refusals stay."""
+    """Every arch and family of the reference is ported now: the
+    deepseek-v2 config resolves and ``get_model`` builds each family.
+    What stays refused, with NotImplementedError naming ROADMAP.md: a loss
+    under the forward-only K4 (``attn_backend="pallas"``), MLA under
+    'pallas' (the kernel takes one head dim for q, k and v), the losses of
+    the vlm, MLA and encdec models (their training is still to port), the
+    'chunked_tri' backend and ``ssd_bf16``; an unknown arch raises
+    KeyError."""
+    assert get_config("deepseek-v2-236b").use_mla
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_config("deepseek-v2-236b")
+        get_config("no-such-arch")
+    for arch in ("smollm-135m", "mixtral-8x22b", "qwen2-vl-72b",
+                 "mamba2-1.3b", "zamba2-1.2b", "seamless-m4t-large-v2"):
+        get_model(get_smoke_config(arch))
     cfg = get_smoke_config(ARCH)
-    for family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_model(cfg.replace(family=family))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_model(cfg.replace(attn_backend="pallas")).loss_fn(None, None)
     tokens = torch.from_numpy(np.random.default_rng(5).integers(
         0, cfg.vocab, (2, 9), dtype=np.int32))
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
     with torch.no_grad():
         loss, metrics = get_model(cfg).loss_fn(
-            get_model(cfg).init(0, device="cpu"),
-            {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]})
+            get_model(cfg).init(0, device="cpu"), batch)
     assert torch.isfinite(loss) and set(metrics) == {"ce", "z_loss", "aux"}
-    for unported in (dict(rope="mrope"), dict(use_mla=True)):
+    mla = get_smoke_config("deepseek-v2-236b")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        get_model(mla.replace(attn_backend="pallas")).init(0, device="cpu")
+    for arch in ("qwen2-vl-72b", "deepseek-v2-236b", "seamless-m4t-large-v2"):
+        m = get_model(get_smoke_config(arch))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_model(cfg.replace(**unported)).init(0, device="cpu")
+            m.loss_fn(m.init(0, device="cpu"), batch)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        get_model(cfg.replace(attn_backend="chunked_tri")).prefill(
+            get_model(cfg).init(0, device="cpu"), {"tokens": tokens},
+            get_model(cfg).init_cache(2, 9, device="cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        get_model(get_smoke_config("mamba2-1.3b").replace(
+            ssd_bf16=True)).init(0, device="cpu")
