@@ -159,6 +159,23 @@ port's entry points:
                 MLA on its own 'chunked' backend, no K4, against 'full'; a
                 'pallas' MLA config raises; the capacity dispatch of 160
                 experts, top-6, against the dense oracle)
+ 25. training last: the three archs of phase 24 trained at full width on
+                phase 24's weights with concrete_inputs' train_4k batches
+                at scale 16 (16 x 256 tokens; qwen2-vl's first 128 vision
+                embeddings and (3, B, S) positions, seamless's 16 x 64
+                frames), each config's 'chunked': qwen2-vl cut to 1 of 80
+                layers and deepseek-v2 to 1 of 60 (MLA) take the loss's
+                forward and backward, seamless as published the whole
+                make_train_step (10 steps on one fixed batch, the loss
+                falling, then 3 through the int8 error-feedback hook); every
+                loss and gradient finite, none all zero, no kernel on the
+                path, a loss under 'pallas' refused; ms, tokens/s, peak
+                memory, one profile each; then smollm-135m's loss and
+                gradients under 'chunked_tri' against 'chunked' (8 x 1024
+                tokens, chunk 256) and ssd_chunked(bf16=True) against the
+                float32 scan at mamba2-1.3b's layer shape. Phase 23 holds
+                one SMOKE float32 step of these archs on the card against
+                the CPU, and the int8 codes of its gradients
 
 It prints each phase's wall time, its findings on earlier lines, one JSON
 line with every kernel's numbers, the nvidia-smi line, and ends with the
@@ -469,10 +486,43 @@ TRAIN_WARM_STEPS = 2         # the first steps (allocator, cuBLAS) left out
 TRAIN_MEMO_STEPS, TRAIN_MEMO_WARMUP = 10, 2   # R3's sanity floor: the loss
 # on one fixed batch must fall over these steps at this warmup
 # card against CPU: one SMOKE train step in float32 per family, loss and
-# parameters within TRAIN_AGREE_TOL (TF32 off, as for every phase)
+# parameters within TRAIN_AGREE_TOL (TF32 off, as for every phase); the
+# last three archs' batches come from concrete_inputs (their frames and
+# vision inputs; the enc-dec's fixed bf16 lifted to float32, as its CPU
+# tests lift it), and on their card gradients quantize_dequantize_int8 is
+# held against the CPU's on the same values, codes and scales equal
+TRAIN_LAST = ("qwen2-vl-72b", "deepseek-v2-236b", "seamless-m4t-large-v2")
 TRAIN_AGREE_ARCHS = ("smollm-135m", "mixtral-8x22b", "mamba2-1.3b",
-                     "zamba2-1.2b")
+                     "zamba2-1.2b") + TRAIN_LAST
 TRAIN_AGREE_TOL = 1e-4
+TRAIN_AGREE_SCALE = 128      # concrete_inputs' train_4k / 128: 2 x 32 tokens
+# phase 25: the last three archs trained at full width on the weights
+# phase 24 drew (qwen2-vl cut to its first layer, deepseek-v2 its one
+# layer, seamless as published), on concrete_inputs(cfg, "train_4k",
+# scale=TRAIN_LAST_SCALE) batches of 16 x 256 tokens, each config's own
+# backend ('chunked'). seamless takes the whole make_train_step:
+# TRAIN_MEMO_STEPS steps at warmup TRAIN_MEMO_WARMUP on one fixed batch
+# (the loss must fall), then TRAIN_LAST_EF_STEPS more through the int8
+# error-feedback hook; qwen2-vl and deepseek-v2, whose AdamW moments alone
+# pass the card, take the loss's forward and backward TRAIN_LAST_RUNS
+# times (the first TRAIN_WARM_STEPS left out of the median)
+TRAIN_LAST_SCALE = 16
+TRAIN_LAST_LAYERS = {"qwen2-vl-72b": 1, "deepseek-v2-236b": 1}
+TRAIN_LAST_EF_STEPS = 3
+TRAIN_LAST_RUNS = 5
+# chunked_tri at full width: one smollm-135m loss and gradient of
+# TRI_BATCH x TRI_SEQ tokens at attn_chunk TRI_CHUNK against 'chunked' (and
+# layer 0's attention on the path's operands against sdpa_chunked), within
+# the reference's bf16-probability tolerance (tests/test_kernels.py:
+# atol = rtol = 2e-2); 'chunked' at chunk TRI_SEQ gives the gap between two
+# plain versions for scale
+TRI_ARCH, TRI_BATCH, TRI_SEQ, TRI_CHUNK = "smollm-135m", 8, 1024, 256
+TRI_TOL = 2e-2
+# ssd_chunked(bf16=True) at mamba2-1.3b's layer shape against the float32
+# scan on the same inputs: max |y16 - y32| within 2% of max |y32| (the
+# reference's own test's bound)
+SSD_BF16_SHAPE = "mamba2_bf16"
+SSD_BF16_REL = 0.02
 # K1's operands are captured from this call of the controller's training:
 # 1 reset + 100 exploration probes, then two rounds of 11 and 5 steps in
 TRAIN_K1_CALL = 1 + 100 + 2 * 11 + 5
@@ -3354,7 +3404,8 @@ def routing_flips(torch, a, b, rows):
     return flipped, gaps
 
 
-def phase_family(torch, card, arch, layers, B, P, ref_backend):
+def phase_family(torch, card, arch, layers, B, P, ref_backend, *,
+                 keep_params=False):
     """20-22, 24. One arch of FAMILY_SERVE served through serve() at full
     width with the backend the command line serves (``served_config``:
     'pallas', or an MLA config's own) on weights drawn from SERVE_SEED and
@@ -3369,7 +3420,9 @@ def phase_family(torch, card, arch, layers, B, P, ref_backend):
     capacity dispatch with nothing dropped against the dense oracle on a
     layer input of the path; the VLM's prefill on a real (t, h, w) grid
     through K4 against ``ref_backend``; an MLA config under 'pallas'
-    refused; a profile of one prefill and one decode step."""
+    refused; a profile of one prefill and one decode step. With
+    ``keep_params`` the result holds the weights (``params``) for a later
+    phase."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import (draw_prompts, prompts_on, serve,
                                           served_config)
@@ -3672,6 +3725,8 @@ def phase_family(torch, card, arch, layers, B, P, ref_backend):
                                                    kernels)}
     for name, pr in out["profile"].items():
         print(f"[{arch} profile] {name}: " + json.dumps(pr))
+    if keep_params:
+        out["params"] = params
     return out
 
 
@@ -3680,13 +3735,76 @@ def max_state_diff(torch, a, b):
     return max(float((a[n].float() - b[n].float()).abs().max()) for n in a)
 
 
+def smoke_step_agree(torch, arch):
+    """One SMOKE train step in float32 on the card and on the CPU from the
+    same state and batch: the gaps of the loss and of the new parameters;
+    for the last three archs also quantize_dequantize_int8 on the card's
+    gradients of that step against the CPU's on the same values (codes
+    and scales equal bit for bit, ``int8_equal``)."""
+    from unittest import mock
+    from repro_torch.configs import concrete_inputs, get_smoke_config
+    from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.models import encdec
+    from repro_torch.runtime import compress
+    scfg = get_smoke_config(arch)
+    if arch in TRAIN_LAST:
+        batch = concrete_inputs(scfg, "train_4k", scale=TRAIN_AGREE_SCALE,
+                                seed=3, device="cpu")
+    else:
+        rows = np.random.default_rng(3).integers(0, scfg.vocab, (2, 33),
+                                                 dtype=np.int32)
+        batch = {"tokens": torch.from_numpy(rows[:, :-1].copy()),
+                 "labels": torch.from_numpy(rows[:, 1:].copy())}
+    batch = {k: v.float() if v.is_floating_point() else v
+             for k, v in batch.items()}
+    init = init_state(scfg, 0, device="cpu")
+    init["params"] = {n: p.float() for n, p in init["params"].items()}
+    grads = {}
+
+    def keep(g):
+        grads.setdefault("g", g)
+        return g
+
+    fn = make_train_step(scfg, warmup_steps=2, total_steps=10,
+                         compress_fn=keep)
+    out = {}
+    with mock.patch.object(encdec, "ACT_DTYPE", torch.float32):
+        for dev in ("cuda", "cpu"):
+            grads.clear()
+            st = {"params": {n: p.to(dev) for n, p in init["params"].items()},
+                  "opt": {k: ({n: t.to(dev) for n, t in v.items()}
+                              if isinstance(v, dict) else v.to(dev))
+                          for k, v in init["opt"].items()}}
+            new, m = fn(st, {k: v.to(dev) for k, v in batch.items()})
+            out[dev] = (float(m["loss"]), {n: p.cpu() for n, p in
+                                           new["params"].items()},
+                        grads["g"])
+    gaps = {"loss": abs(out["cuda"][0] - out["cpu"][0]),
+            "params": max_state_diff(torch, out["cuda"][1], out["cpu"][1])}
+    if arch in TRAIN_LAST:
+        g_card = out["cuda"][2]
+        codes, scales = compress.int8_codes(g_card)
+        want_codes, want_scales = compress.int8_codes(
+            {n: g.cpu() for n, g in g_card.items()})
+        dq = compress.quantize_dequantize_int8(g_card)
+        want_dq = compress.quantize_dequantize_int8(
+            {n: g.cpu() for n, g in g_card.items()})
+        gaps["int8_equal"] = all(
+            torch.equal(codes[n].cpu(), want_codes[n])
+            and torch.equal(scales[n].cpu(), want_scales[n])
+            and torch.equal(dq[n].cpu(), want_dq[n]) for n in g_card)
+        gaps["int8_roundtrip_error"] = float(
+            compress.int8_roundtrip_error(g_card))
+    return gaps
+
+
 def phase_train(torch, card):
     """Phase 23: full-width smollm-135m training through the port's
     ``train()``; returns its numbers and K1's row on the controller's
     operands."""
     import shutil
     from repro_torch.checkpoint import latest_step
-    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs import get_config
     from repro_torch.core import simulator as sim_mod
     from repro_torch.launch.steps import init_state, make_train_step
     from repro_torch.launch.train import train
@@ -3794,34 +3912,16 @@ def phase_train(torch, card):
     del st
 
     # one SMOKE step per family, card against CPU, float32
-    agree = {}
-    for arch in TRAIN_AGREE_ARCHS:
-        scfg = get_smoke_config(arch)
-        rows = np.random.default_rng(3).integers(0, scfg.vocab, (2, 33),
-                                                 dtype=np.int32)
-        init = init_state(scfg, 0, device="cpu")
-        init["params"] = {n: p.float() for n, p in init["params"].items()}
-        fn = make_train_step(scfg, warmup_steps=2, total_steps=10)
-        out = {}
-        for dev in ("cuda", "cpu"):
-            st = {"params": {n: p.to(dev) for n, p in init["params"].items()},
-                  "opt": {k: ({n: t.to(dev) for n, t in v.items()}
-                              if isinstance(v, dict) else v.to(dev))
-                          for k, v in init["opt"].items()}}
-            b = {"tokens": torch.from_numpy(rows[:, :-1].copy()).to(dev),
-                 "labels": torch.from_numpy(rows[:, 1:].copy()).to(dev)}
-            new, m = fn(st, b)
-            out[dev] = (float(m["loss"]), {n: p.cpu() for n, p in
-                                           new["params"].items()})
-        agree[arch] = {"loss": abs(out["cuda"][0] - out["cpu"][0]),
-                       "params": max_state_diff(torch, out["cuda"][1],
-                                                out["cpu"][1])}
+    agree = {arch: smoke_step_agree(torch, arch)
+             for arch in TRAIN_AGREE_ARCHS}
     print(f"[train agree] ({card}) one SMOKE float32 step, card vs CPU: "
           f"{json.dumps(agree)}")
     bad = {a: g for a, g in agree.items()
-           if not max(g.values()) <= TRAIN_AGREE_TOL}
+           if not max(g["loss"], g["params"]) <= TRAIN_AGREE_TOL
+           or g.get("int8_equal") is False}
     if bad:
-        fail(f"a SMOKE train step on the card disagrees with the CPU: {bad}")
+        fail(f"a SMOKE train step on the card disagrees with the CPU, or "
+             f"its int8 codes do: {bad}")
 
     args, _ = rec.calls[0]
     k1 = sim_check(torch, "train_controller", *args)
@@ -3831,6 +3931,262 @@ def phase_train(torch, card):
           f"{k1['plain_ms']} bound_ms={k1['bound_ms']:.3g} ({k1['bound_by']})")
     return {"launches": launches, "k1": k1, "step_ms": step_ms,
             "tokens_per_s": tok_s, "profile": prof, "agree": agree}
+
+
+def grad_checks(torch, grads):
+    """(every gradient finite, the names of those that are all zero)."""
+    names = list(grads)
+    finite = bool(torch.stack([torch.isfinite(grads[n]).all()
+                               for n in names]).all())
+    amax = torch.stack([grads[n].abs().amax().float() for n in names])
+    return finite, [n for n, a in zip(names, amax.tolist()) if a == 0]
+
+
+def phase_train_last(torch, card, kept):
+    """Phase 25: the last three archs trained at full width on the weights
+    phase 24 drew (``kept``: arch -> params, cut to TRAIN_LAST_LAYERS),
+    then chunked_tri on smollm-135m's loss and ssd_bf16 at mamba2-1.3b's
+    layer shape. Returns each part's numbers."""
+    out = {}
+    for arch in TRAIN_LAST:
+        out[arch] = train_last_arch(torch, card, arch, kept.pop(arch))
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["chunked_tri"] = tri_check(torch, card)
+    out["ssd_bf16"] = ssd_bf16_check(torch, card)
+    return out
+
+
+def train_last_arch(torch, card, arch, params):
+    """One arch of phase 25 on its full-width ``params``: seamless's
+    whole train step, or qwen2-vl's and deepseek-v2's loss forward and
+    backward; every loss and gradient finite, no gradient all zero, no
+    kernel launched, the fixed-batch loss falling (seamless), a loss under
+    'pallas' refused; ms, tokens/s, peak memory and a profile."""
+    from repro_torch.configs import concrete_inputs, get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import (int8_roundtrip_error,
+                                     make_int8_compressor)
+    cfg = get_config(arch)
+    if TRAIN_LAST_LAYERS.get(arch):
+        cfg = cfg.replace(n_layers=TRAIN_LAST_LAYERS[arch])
+    model = get_model(cfg)
+    batch = concrete_inputs(cfg, "train_4k", scale=TRAIN_LAST_SCALE)
+    B, S = batch["tokens"].shape
+    n_params = sum(p.numel() for p in params.parameters())
+    shapes = {k: list(v.shape) for k, v in batch.items()}
+    tag = f"[train25 {arch}] ({card})"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_launches()
+    wall, checks, losses, state = [], [], [], None
+    if cfg.family == "encdec":
+        # the whole train step: a fixed batch, then the int8 hook
+        steps_n = TRAIN_MEMO_STEPS + TRAIN_LAST_EF_STEPS
+        state = {"params": {n: p.detach()
+                            for n, p in params.named_parameters()}}
+        state["opt"] = adamw_init(state["params"])
+        ef = make_int8_compressor(error_feedback=True)
+        seen = {}
+
+        def check(g):
+            checks.append(grad_checks(torch, g))
+            return g
+
+        def compress(g):
+            if not seen:
+                seen["err"] = float(int8_roundtrip_error(g))
+            return ef(check(g))
+
+        plain_step, hooked_step = (make_train_step(
+            cfg, warmup_steps=TRAIN_MEMO_WARMUP, total_steps=steps_n,
+            compress_fn=hook) for hook in (check, compress))
+        for i in range(steps_n):
+            t0 = time.perf_counter()
+            state, m = (plain_step if i < TRAIN_MEMO_STEPS
+                        else hooked_step)(state, batch)
+            losses.append(float(m["loss"]))
+            wall.append(time.perf_counter() - t0)
+        what = (f"make_train_step, {TRAIN_MEMO_STEPS} steps at warmup "
+                f"{TRAIN_MEMO_WARMUP} on one fixed batch + "
+                f"{TRAIN_LAST_EF_STEPS} with the int8 error-feedback hook")
+        run = lambda: plain_step(state, batch)
+        res = dict(int8_roundtrip_error=seen["err"])
+    else:
+        # the loss's forward and backward, as make_train_step takes it
+        leaves = list(params.parameters())
+        names = [n for n, _ in params.named_parameters()]
+
+        def run():
+            loss, metrics = model.loss_fn(params, batch)
+            g = torch.autograd.grad(loss, leaves)
+            return loss.detach(), metrics, dict(zip(names, g))
+
+        for _ in range(TRAIN_LAST_RUNS):
+            t0 = time.perf_counter()
+            loss, metrics, g = run()
+            losses.append(float(loss))
+            checks.append(grad_checks(torch, g))
+            wall.append(time.perf_counter() - t0)
+            del g
+        what = f"loss_fn + torch.autograd.grad, {TRAIN_LAST_RUNS} times"
+        res = dict(metrics={k: float(v.detach()) for k, v in
+                            metrics.items()})
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    steady = wall[TRAIN_WARM_STEPS:]
+    ms = float(np.median(steady)) * 1e3
+    res.update(losses=losses, n_layers=(
+        cfg.n_enc_layers + cfg.n_dec_layers if cfg.family == "encdec"
+        else cfg.n_layers), n_params=n_params, batch=shapes,
+        backend=cfg.attn_backend, ms=ms, tokens_per_s=B * S / (ms / 1e3),
+        wall_s=wall, max_memory_allocated=peak, held_before=held,
+        launches=launches)
+    finite = all(c[0] for c in checks) and bool(np.all(np.isfinite(losses)))
+    zero = sorted({n for c in checks for n in c[1]})
+    print(f"{tag} {res['n_layers']} layers at full width, {n_params} "
+          f"parameters (phase 24's), batch {json.dumps(shapes)}, "
+          f"attn_backend={cfg.attn_backend}; {what}: losses "
+          f"{json.dumps(losses)}; every loss and gradient finite {finite}, "
+          f"parameters with an all-zero gradient {zero}; ms {ms} (median "
+          f"after {TRAIN_WARM_STEPS}; every one's s {json.dumps(wall)}) = "
+          f"{res['tokens_per_s']} tokens/s; max_memory_allocated {peak} "
+          f"bytes ({held} held before: these weights and those of the "
+          f"archs still to run); launches {json.dumps(launches)}"
+          + (f"; metrics {json.dumps(res['metrics'])}"
+             if "metrics" in res else
+             f"; int8_roundtrip_error of the first hooked step's gradients "
+             f"{res['int8_roundtrip_error']}"))
+    if not finite or zero:
+        fail(f"{arch}: a non-finite loss or gradient, or all-zero "
+             f"gradients: {zero}")
+    if any(launches.values()):
+        fail(f"{arch}: a kernel ran on the loss path: "
+             f"{json.dumps(launches)}")
+    if cfg.family == "encdec" and not losses[TRAIN_MEMO_STEPS - 1] < losses[0]:
+        fail(f"{arch}: the loss on one fixed batch did not fall")
+    try:
+        get_model(cfg.replace(attn_backend="pallas")).loss_fn(params, batch)
+    except NotImplementedError as e:
+        res["pallas_refused"] = str(e)
+        print(f"{tag} a loss under 'pallas' refused: {e}")
+    else:
+        fail(f"{arch}: a loss under 'pallas' was not refused")
+    res["profile"] = profile_round(torch, run, ())
+    print(f"{tag} one {'step' if state is not None else 'loss+grad'} "
+          f"profiled: "
+          + json.dumps(res["profile"]))
+    return res
+
+
+def tri_check(torch, card):
+    """chunked_tri at full width (TRI_*): smollm-135m's loss and gradients
+    under 'chunked_tri' and 'chunked' (and 'chunked' at one chunk, two
+    plain versions' gap for scale) on the same weights and tokens, held at
+    TRI_TOL; layer 0's attention on the path's operands against
+    sdpa_chunked at the same chunk; no kernel launched; each loss and
+    gradient timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.nn import attention as attn_mod
+    cfg = get_config(TRI_ARCH)
+    params = get_model(cfg).init(SERVE_SEED)
+    rows = np.random.default_rng(SERVE_SEED).integers(
+        0, cfg.vocab, (TRI_BATCH, TRI_SEQ + 1), dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(rows[:, :-1].copy()).cuda(),
+             "labels": torch.from_numpy(rows[:, 1:].copy()).cuda()}
+    leaves = list(params.parameters())
+
+    def loss_grad(backend, chunk=TRI_CHUNK):
+        m = get_model(cfg.replace(attn_backend=backend, attn_chunk=chunk))
+        loss, _ = m.loss_fn(params, batch)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    reset_launches()
+    with Recorder(attn_mod, "sdpa_chunked_tri", keep=(0,)) as rec:
+        tri = loss_grad("chunked_tri")
+        torch.cuda.synchronize()
+    launches = read_launches()
+    plain = loss_grad("chunked")
+    other = loss_grad("chunked", TRI_SEQ)
+    (q, k, v, q_pos, k_pos), kw = rec.calls[0]
+    q, k, v = (t.detach() for t in (q, k, v))
+    with torch.no_grad():
+        a_tri = attn_mod.sdpa_chunked_tri(q, k, v, q_pos, k_pos, **kw)
+        a_plain = attn_mod.sdpa_chunked(q, k, v, q_pos, k_pos, **kw)
+    attn_ratio = allclose_ratio(torch, a_tri, a_plain, TRI_TOL)
+
+    def gaps(a, b):
+        """(loss gap, max over tensors of the allclose ratio at TRI_TOL,
+        relative L2 of the whole gradient)."""
+        ratio = max(allclose_ratio(torch, x, y, TRI_TOL)
+                    for x, y in zip(a[1], b[1]))
+        num = sum(float(((x.float() - y.float()) ** 2).sum())
+                  for x, y in zip(a[1], b[1]))
+        den = sum(float((y.float() ** 2).sum()) for y in b[1])
+        return abs(float(a[0]) - float(b[0])), ratio, (num / den) ** 0.5
+
+    ms = {be: time_ms(torch, lambda be=be: loss_grad(be), samples=3,
+                      inner=1, warmup=1)
+          for be in ("chunked_tri", "chunked")}
+    d_tri, r_tri, l2_tri = gaps(tri, plain)
+    d_one, r_one, l2_one = gaps(other, plain)
+    out = dict(batch=TRI_BATCH, seq=TRI_SEQ, chunk=TRI_CHUNK,
+               loss_tri=float(tri[0]), loss_chunked=float(plain[0]),
+               loss_gap=d_tri, grad_tol_ratio=r_tri, grad_rel_l2=l2_tri,
+               attn_tol_ratio=attn_ratio, calls=rec.n,
+               plain_chunk_gap={"loss": d_one, "grad_tol_ratio": r_one,
+                                "grad_rel_l2": l2_one},
+               ms=ms, launches=launches)
+    print(f"[train25 chunked_tri] ({card}) {TRI_ARCH} full width, "
+          f"{TRI_BATCH} x {TRI_SEQ} tokens, attn_chunk {TRI_CHUNK}: loss "
+          f"{out['loss_tri']} vs 'chunked' {out['loss_chunked']} (gap "
+          f"{d_tri}); gradients at most {r_tri} of atol = rtol = {TRI_TOL},"
+          f" relative L2 {l2_tri} ('chunked' at chunk {TRI_SEQ} vs "
+          f"{TRI_CHUNK}: loss {d_one}, {r_one} of the tolerance, relative "
+          f"L2 {l2_one}); layer 0's attention on the path's operands vs "
+          f"sdpa_chunked: {attn_ratio} of the tolerance; sdpa_chunked_tri "
+          f"called {rec.n} times (remat recomputes each layer); loss + "
+          f"grad ms {json.dumps(ms)}; launches {json.dumps(launches)}")
+    if not (d_tri <= TRI_TOL * (1 + abs(out["loss_chunked"]))
+            and r_tri <= 1 and attn_ratio <= 1
+            and np.isfinite(out["loss_tri"])):
+        fail(f"chunked_tri disagrees with 'chunked' beyond {TRI_TOL}: "
+             f"{json.dumps(out)}")
+    if any(launches.values()) or rec.n < cfg.n_layers:
+        fail(f"chunked_tri: launches {launches}, {rec.n} calls")
+    return out
+
+
+def ssd_bf16_check(torch, card):
+    """ssd_chunked(bf16=True) at mamba2-1.3b's layer shape against the
+    float32 scan on the same operands, within SSD_BF16_REL of max |y32|;
+    both timed."""
+    from repro_torch.nn.ssd import ssd_chunked
+    b, s, h, p, g, n, dtype = SSD_SHAPES[SSD_BF16_SHAPE]
+    args = ssd_operands(torch, b, s, h, p, g, n, dtype, seed=5)
+    with torch.no_grad():
+        y16, st16 = ssd_chunked(*args, chunk=SSD_CHUNK, bf16=True)
+        y32, st32 = ssd_chunked(*args, chunk=SSD_CHUNK)
+        rel = float((y16.float() - y32.float()).abs().max()
+                    / y32.float().abs().max())
+        st_rel = float((st16 - st32).abs().max() / st32.abs().max())
+        ms = {name: time_ms(torch, lambda bf=bf: ssd_chunked(
+            *args, chunk=SSD_CHUNK, bf16=bf), samples=5, inner=2, warmup=1)
+            for name, bf in (("bf16", True), ("float32", False))}
+    out = dict(shape=[b, s, h, p, g, n], dtype=dtype, rel=rel,
+               state_rel=st_rel, ms=ms)
+    print(f"[train25 ssd_bf16] ({card}) ssd_chunked(bf16=True) at "
+          f"{SSD_BF16_SHAPE} {out['shape']} {dtype}: max |y16 - y32| / max "
+          f"|y32| = {rel} (limit {SSD_BF16_REL}), the final state's "
+          f"{st_rel}; ms {json.dumps(ms)}")
+    if not (rel <= SSD_BF16_REL and np.isfinite(st_rel)):
+        fail(f"ssd_bf16 parts from the float32 scan by {rel}")
+    return out
 
 
 def main():
@@ -4070,11 +4426,17 @@ def main():
     # --- 19. topology scale-out: the compact-active-set path ----------------
     tsc = phase_topology_scale(torch)
     lap(19)
-    fam = {}
+    fam, kept = {}, {}
 
     def family_phase(phase):
         for arch, spec in FAMILY_SERVE[phase].items():
-            fam[arch] = phase_family(torch, card, arch, *spec)
+            fam[arch] = phase_family(torch, card, arch, *spec,
+                                     keep_params=arch in TRAIN_LAST)
+            if arch in TRAIN_LAST:   # phase 25's weights, cut to its depth
+                kept[arch] = fam[arch].pop("params")
+                n = TRAIN_LAST_LAYERS.get(arch)
+                if n:
+                    kept[arch].layers = kept[arch].layers[:n]
             gc.collect()
             torch.cuda.empty_cache()
         lap(phase)
@@ -4089,6 +4451,9 @@ def main():
     torch.cuda.empty_cache()
     # --- 24. seamless (enc-dec), qwen2-vl (M-RoPE), deepseek-v2 (MLA) -----
     family_phase(24)
+    # --- 25. their training at full width; chunked_tri; ssd_bf16 ----------
+    tl = phase_train_last(torch, card, kept)
+    lap(25)
     print(f"[wall] per phase s {json.dumps(walls)}; total "
           f"{sum(walls.values()):.2f} s")
     print(f"[profiler] device_ms windows: {PROFILER_WINDOWS['calls']} "
@@ -4239,6 +4604,10 @@ def main():
         "n_layers", "batch", "prompt", "gen", "info", "init_s", "n_params",
         "max_diff_ref", "max_diff_step", "max_diff_grid") if k in f}
         for a, f in fam.items()}))
+    print("[training last] " + json.dumps({a: {k: r[k] for k in (
+        "n_layers", "n_params", "batch", "ms", "tokens_per_s",
+        "max_memory_allocated", "losses") if k in r}
+        for a, r in tl.items() if a in TRAIN_LAST}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -120,6 +120,18 @@ _STACKS = {"layers": 1, "dense_layers": 1, "tail": 1, "groups": 2,
            "enc_layers": 1, "dec_layers": 1}
 
 
+def reference_name(name):
+    """The reference's key path of a port parameter name: the layer
+    indices of a ``_STACKS`` stack dropped (``layers.3.attn.wq.w`` ->
+    ``layers.attn.wq.w``, ``groups.1.2.mixer.D`` -> ``groups.mixer.D``);
+    every other name is its own."""
+    stack, *rest = name.split(".")
+    depth = _STACKS.get(stack, 0)
+    if depth and all(p.isdigit() for p in rest[:depth]):
+        rest = rest[depth:]
+    return ".".join([stack, *rest])
+
+
 def lm_params_from_jax(cfg, tree, *, device=None) -> nn.Module:
     """The JAX package's decoder (MLA and qkv biases included), ssm, hybrid
     or enc-dec params (nested dict of NumPy arrays, each stack of

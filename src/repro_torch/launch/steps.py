@@ -36,11 +36,12 @@ def _slots(module):
 
 
 def make_train_step(cfg, *, peak_lr=3e-4, warmup_steps=100, total_steps=10000,
-                    weight_decay=0.1, max_grad_norm=1.0):
+                    weight_decay=0.1, max_grad_norm=1.0, compress_fn=None):
     """Returns train_step(state, batch) -> (state, metrics). The metrics
     are detached 0-d tensors on the state's device: loss, lr, ce, z_loss,
-    aux, grad_norm. (The reference's ``compress_fn`` gradient hook waits
-    for ``runtime/compress.py``.)"""
+    aux, grad_norm. ``compress_fn`` ({name: grad} -> {name: grad}, e.g.
+    ``runtime.compress.make_int8_compressor()``) is applied to the
+    gradients before the optimizer."""
     model = get_model(cfg)
     holder = structure(cfg)
     slots = _slots(holder)
@@ -55,6 +56,8 @@ def make_train_step(cfg, *, peak_lr=3e-4, warmup_steps=100, total_steps=10000,
         grads = dict(zip(leaves, torch.autograd.grad(loss,
                                                      list(leaves.values()))))
         with torch.no_grad():
+            if compress_fn is not None:
+                grads = compress_fn(grads)
             lr = cosine_schedule(state["opt"]["step"], peak_lr=peak_lr,
                                  warmup_steps=warmup_steps,
                                  total_steps=total_steps)

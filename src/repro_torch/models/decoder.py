@@ -21,8 +21,11 @@ layer index in place of the stacked axis (``layers.3.attn.wq.w`` is
 ``attention_apply`` (the config's 'full' or 'chunked' backend) and, with
 ``cfg.remat``, ``torch.utils.checkpoint`` in place of ``jax.checkpoint``.
 K4 (``attn_backend="pallas"``) is forward-only, so a loss under it raises.
-MLA has no K4 route (``models.mla``): under 'pallas' it raises. The losses
-of the VLM and MLA models are still to port (ROADMAP.md).
+MLA has no K4 route (``models.mla``): under 'pallas' it raises. Every
+family of the decoder trains: the VLM's loss takes ``vision_embeds`` and
+``positions_thw`` as its forward does, and the MLA's runs ``mla.mla_apply``
+(q and k of head dim nope + rope, v of ``v_head_dim``) under 'full' or
+'chunked'.
 """
 
 from __future__ import annotations
@@ -240,11 +243,9 @@ def maybe_remat(cfg, fn):
 
 
 def check_trainable(cfg):
-    """A loss takes gradients through attention: K4 has none. The VLM and
-    MLA losses are not ported yet."""
-    if cfg.family == "vlm" or cfg.use_mla:
-        raise _unported(f"the loss of {cfg.name} (the {cfg.family!r} "
-                        f"family{', MLA' if cfg.use_mla else ''})")
+    """A loss takes gradients through attention, and K4 has none: a loss
+    under 'pallas' raises, whatever the family (the VLM and MLA losses
+    included; MLA has no 'pallas' route at all)."""
     if cfg.attn_backend == "pallas":
         raise NotImplementedError(
             "attn_backend='pallas' is forward-only (K4 has no backward in "

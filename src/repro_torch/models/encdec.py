@@ -14,19 +14,27 @@ The serving cache holds per decoder layer a KV cache (``self``) and the
 encoder output's cross K/V (``cross_k``, ``cross_v``, bf16, written by the
 prefill), and ``len``. Parameter names are the reference's with the
 layer index in place of the stacked axis (``dec_layers.3.cross_attn.wq.w``).
-Training these models is still to port (ROADMAP.md): ``loss_fn`` raises.
+
+``forward`` and ``loss_fn`` are the training path, as in the reference:
+the encoder and the teacher-forced decoder over the whole sequence, each
+block under ``maybe_remat`` when ``cfg.remat`` (the reference's
+``scan_layers(remat=)``), and the decoder's cross entropy. K4 is
+forward-only, so a loss under 'pallas' raises.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models.decoder import (Embedding, PARAM_DTYPE, _readout,
-                                        _rope_fn, _rope_fn_decode, _unported)
+                                        _rope_fn, _rope_fn_decode, _unported,
+                                        check_trainable, cross_entropy,
+                                        maybe_remat)
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers as nnl
 
@@ -125,24 +133,72 @@ def _text_positions(B, S, device):
     return mask_pos[None].expand(B, S), mask_pos
 
 
-def encode(cfg, params, frames):
+def _enc_block_apply(cfg, p, x, extra):
+    positions, mask_pos = extra["positions"], extra["mask_positions"]
+    h = p.attn_norm(x, eps=cfg.norm_eps)
+    x = x + attn.attention_apply(p.attn, h, mask_pos,
+                                 rope_fn=_rope_fn(cfg, positions),
+                                 **_attn_kw(cfg, "full"))
+    return x + p.ffn(p.ffn_norm(x, eps=cfg.norm_eps))
+
+
+def encode(cfg, params, frames, *, remat=False):
     """frames: (B, S_src, d_model) precomputed embeddings (the frontend
     stub), taken to ``ACT_DTYPE`` as the reference does -> the encoder
-    output."""
+    output. ``remat``: each block under ``maybe_remat`` (training)."""
     B, S = frames.shape[:2]
     positions, mask_pos = _text_positions(B, S, frames.device)
+    extra = {"positions": positions, "mask_positions": mask_pos}
+    fn = partial(_enc_block_apply, cfg)
+    if remat:
+        fn = maybe_remat(cfg, fn)
     x = frames.to(ACT_DTYPE)
     for p in params.enc_layers:
-        h = p.attn_norm(x, eps=cfg.norm_eps)
-        x = x + attn.attention_apply(p.attn, h, mask_pos,
-                                     rope_fn=_rope_fn(cfg, positions),
-                                     **_attn_kw(cfg, "full"))
-        x = x + p.ffn(p.ffn_norm(x, eps=cfg.norm_eps))
+        x = fn(p, x, extra)
     return params.enc_norm(x, eps=cfg.norm_eps)
 
 
+def _dec_block_apply(cfg, p, x, extra):
+    """One decoder block over the whole (teacher-forced) sequence."""
+    h = p.self_norm(x, eps=cfg.norm_eps)
+    x = x + attn.attention_apply(p.self_attn, h, extra["mask_positions"],
+                                 rope_fn=_rope_fn(cfg, extra["positions"]),
+                                 **_attn_kw(cfg, "causal"))
+    h = p.cross_norm(x, eps=cfg.norm_eps)
+    x = x + attn.attention_apply(p.cross_attn, h, extra["mask_positions"],
+                                 rope_fn=None, x_kv=extra["enc_out"],
+                                 kv_positions=extra["enc_pos"],
+                                 **_attn_kw(cfg, "full"))
+    return x + p.ffn(p.ffn_norm(x, eps=cfg.norm_eps))
+
+
+def forward(cfg, params, batch):
+    """batch {"tokens" (B, S), "frames" (B, S_src, d_model)} -> (the
+    decoder's final hidden states, aux loss 0)."""
+    _check_supported(cfg)
+    enc_out = encode(cfg, params, batch["frames"], remat=True)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions, mask_pos = _text_positions(B, S, tokens.device)
+    extra = {"positions": positions, "mask_positions": mask_pos,
+             "enc_out": enc_out,
+             "enc_pos": torch.arange(enc_out.shape[1], dtype=torch.int32,
+                                     device=tokens.device)}
+    x = nnl.embedding(params.embed.embed, tokens)
+    fn = maybe_remat(cfg, partial(_dec_block_apply, cfg))
+    for p in params.dec_layers:
+        x = fn(p, x, extra)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def loss_fn(cfg, params, batch):
-    raise _unported(f"the loss of {cfg.name} (the 'encdec' family)")
+    """batch {"tokens", "labels" (B, S) int, "frames", optional
+    "loss_mask"} -> (scalar loss, metrics): the decoder's objective
+    (``models.decoder.cross_entropy``, the reference's ``_shared_loss``) on
+    the decoder's hidden states."""
+    check_trainable(cfg)
+    x, aux = forward(cfg, params, batch)
+    return cross_entropy(cfg, params, batch, x, aux)
 
 
 def init_cache(cfg, batch, max_len, *, device=None):

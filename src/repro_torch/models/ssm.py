@@ -12,10 +12,11 @@ decode starts from; decode is the plain single-token recurrence.
 
 ``forward`` and ``loss_fn`` are the training path, as in the reference:
 every layer through ``mamba2_apply`` with the plain chunked scan
-(``nn.ssd.ssd_chunked``; K5 is forward-only) and the decoder's cross
-entropy; ``cfg.remat`` checkpoints each block.
-
-Still to port (ROADMAP.md): the bf16 intra-chunk variant (``ssd_bf16``).
+(``nn.ssd.ssd_chunked``, its bf16 intra-chunk variant when
+``cfg.ssd_bf16``; K5 is forward-only) and the decoder's cross entropy;
+``cfg.remat`` checkpoints each block. The prefill runs K5 whatever
+``cfg.ssd_bf16`` says: its bf16 route already rounds the intra-chunk
+operands to bf16.
 """
 
 from __future__ import annotations
@@ -37,8 +38,6 @@ from repro_torch.nn import ssd
 def _check_supported(cfg):
     if cfg.family != "ssm":
         raise _unported(f"the {cfg.family!r} family in the ssm model")
-    if cfg.ssd_bf16:
-        raise _unported("ssd_bf16")
 
 
 def _ssm_kw(cfg):
@@ -96,8 +95,9 @@ def init(cfg, seed=0, *, device=None):
 def _block_apply(cfg, p, x):
     """One block over the whole sequence (training): x + mixer(norm x)."""
     h = p.norm(x, eps=cfg.norm_eps)
+    ssd_fn = partial(ssd.ssd_chunked, bf16=True) if cfg.ssd_bf16 else None
     return x + ssd.mamba2_apply(p.mixer, h, chunk=cfg.ssm_chunk,
-                                **_ssm_kw(cfg))
+                                ssd_fn=ssd_fn, **_ssm_kw(cfg))
 
 
 def forward(cfg, params, batch):

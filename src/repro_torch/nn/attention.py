@@ -5,11 +5,15 @@ KV-cache prefill and decode paths.
 Backends
   'full'    — materialize (B,H,S,S) scores.
   'chunked' — online softmax over KV chunks, O(S·C) live memory.
+  'chunked_tri' — online softmax over (q block, kv block) pairs, only
+              the pairs with unmasked entries (about half the scores of
+              'chunked' for causal attention, the window's band for
+              sliding), bf16 probabilities; other modes and decode take
+              'chunked', as in the reference.
   'pallas'  — the flash-attention kernel (K4, ``repro_torch.kernels.
               flash_attention``): the CUDA kernel on the card, its plain
               version on the CPU. Cross-attention and decode fall through
               to 'full', as in the reference.
-'chunked_tri' (the reference's triangular block pairs) is still to port.
 
 ``attention_apply`` is the full-sequence path the training losses take;
 ``attention_prefill`` and ``attention_decode`` serve.
@@ -150,12 +154,92 @@ def sdpa_chunked(q, k, v, q_pos, k_pos, *, mode="causal", window=None,
     return out.transpose(1, 2).to(q.dtype)  # (B,Sq,Hq,Dv)
 
 
+def sdpa_chunked_tri(q, k, v, q_pos, k_pos, *, mode="causal", window=None,
+                     chunk=1024, probs_dtype=torch.bfloat16):
+    """Triangular block-chunked online-softmax attention: q and kv are cut
+    into C-sized blocks, and only the block pairs (i, j) that can hold an
+    unmasked entry are scored (j <= i; for a sliding window also i - j <=
+    ceil(window / C)). Each q block carries its own (m, l, acc) state. The
+    reference scans the pairs one by one; here every pair at one offset
+    i - j is one batched product, and the offsets run in the order that
+    gives each q block the reference's order of pairs (the masked pairs
+    first, then the others, each by ascending j). The probabilities are
+    ``probs_dtype`` (bf16 by default, as in the reference), the normalizer
+    and accumulator float32.
+
+    Self-attention over contiguous positions from 0 (training and
+    prefill): Sq == Skv, ``q_pos`` and ``k_pos`` are not read."""
+    if mode not in ("causal", "sliding") or q.shape[1] != k.shape[1]:
+        raise ValueError("sdpa_chunked_tri is causal or sliding-window "
+                         "self-attention")
+    B, S, Hq, D = q.shape
+    Dv = v.shape[-1]
+    C = min(chunk, S)
+    pad = (-S) % C
+    if pad:
+        q, k, v = (nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                   for t in (q, k, v))
+    n = (S + pad) // C
+    f32 = torch.float32
+    qb = q.reshape(B, n, C, Hq, D).to(f32)
+    kb = _repeat_kv(k, Hq).reshape(B, n, C, Hq, D).to(f32)
+    vb = _repeat_kv(v, Hq).reshape(B, n, C, Hq, Dv).to(probs_dtype).to(f32)
+    scale = 1.0 / math.sqrt(D)
+    sliding = mode == "sliding" and window is not None
+    offsets = range(n)
+    if sliding:
+        offsets = range(min(n, -(-int(window) // C) + 1))
+
+    def needs_mask(d):
+        # the diagonal (where kv padding also lies) and the window's edge
+        return d == 0 or (sliding and (d + 1) * C > window)
+
+    order = ([d for d in reversed(offsets) if needs_mask(d)]
+             + [d for d in reversed(offsets) if not needs_mask(d)])
+    m = torch.full((B, Hq, n, C), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((B, Hq, n, C), dtype=f32, device=q.device)
+    acc = torch.zeros((B, Hq, n, C, Dv), dtype=f32, device=q.device)
+    for d in order:   # the pairs (i, i - d), i = d .. n - 1
+        s = torch.einsum("bnqhd,bnkhd->bhnqk", qb[:, d:], kb[:, :n - d]) \
+            * scale
+        masked = needs_mask(d)
+        if masked:
+            ar = torch.arange(C, device=q.device)
+            diff = d * C + ar[:, None] - ar[None, :]
+            ok = diff >= 0
+            if sliding:
+                ok = ok & (diff < window)
+            ok = ok.expand(n - d, C, C)
+            if pad and d == 0:   # the last kv block's padding
+                kpos = (n - 1) * C + ar
+                ok = torch.cat([ok[:-1], ok[-1:] & (kpos < S)[None, None]])
+            s = s.masked_fill(~ok, NEG_INF)
+        mi, li, ai = m[:, :, d:], l[:, :, d:], acc[:, :, d:]
+        m_new = torch.maximum(mi, s.amax(dim=-1))
+        p = torch.exp((s - m_new[..., None]).to(probs_dtype))
+        if masked:
+            p = torch.where(m_new[..., None] <= NEG_INF / 2,
+                            torch.zeros((), dtype=probs_dtype,
+                                        device=q.device), p)
+        corr = torch.exp(mi - m_new)
+        l_new = li * corr + p.sum(dim=-1, dtype=f32)
+        a_new = ai * corr[..., None] + torch.einsum(
+            "bhnqk,bnkhd->bhnqd", p.to(f32), vb[:, :n - d])
+        m = torch.cat([m[:, :, :d], m_new], dim=2)
+        l = torch.cat([l[:, :, :d], l_new], dim=2)
+        acc = torch.cat([acc[:, :, :d], a_new], dim=2)
+    out = acc / torch.clamp_min(l, 1e-37)[..., None]      # (B,H,n,C,Dv)
+    out = out.reshape(B, Hq, n * C, Dv)[:, :, :S]
+    return out.transpose(1, 2).to(q.dtype)                 # (B,S,H,Dv)
+
+
 def _sdpa(q, k, v, q_pos, k_pos, *, backend, mode, window, k_len=None,
           chunk=1024):
-    if backend == "chunked_tri":
-        raise NotImplementedError("attn_backend 'chunked_tri' is not ported "
-                                  "yet (see ROADMAP.md)")
-    if backend == "chunked":
+    if (backend == "chunked_tri" and k_len is None
+            and mode in ("causal", "sliding")):
+        return sdpa_chunked_tri(q, k, v, q_pos, k_pos, mode=mode,
+                                window=window, chunk=chunk)
+    if backend in ("chunked", "chunked_tri"):
         return sdpa_chunked(q, k, v, q_pos, k_pos, mode=mode, window=window,
                             k_len=k_len, chunk=chunk)
     if backend == "pallas":

@@ -37,11 +37,13 @@ def segsum(x):
 
 def ssd_chunked(x, dt, A, B, C, *, chunk=128, bf16=False):
     """SSD forward. x:(b,s,h,p) dt:(b,s,h) A:(h,) B,C:(b,s,g,n). Returns
-    (y:(b,s,h,p) in x's dtype, final_state:(b,h,p,n) float32). All the
-    math is float32. ``bf16`` (bf16 intra-chunk tensors) is not ported."""
-    if bf16:
-        raise NotImplementedError("ssd_chunked(bf16=True) is not ported yet "
-                                  "(see ROADMAP.md)")
+    (y:(b,s,h,p) in x's dtype, final_state:(b,h,p,n) float32). The math is
+    float32; with ``bf16`` the intra-chunk tensors are rounded to bf16 where
+    the reference's variant keeps them in bf16: the decay mask L, the
+    scores C Bᵀ (from bf16 C and B, rounded once), their product with L,
+    and x·dt. The products run on float32 copies of those bf16 values with
+    float32 sums, as the reference's ``preferred_element_type`` asks; the
+    states stay float32."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     pad = (-s) % chunk
@@ -66,10 +68,12 @@ def ssd_chunked(x, dt, A, B, C, *, chunk=128, bf16=False):
     dA_cum = torch.cumsum(dA, dim=2)  # within-chunk cumulative
 
     # 1) intra-chunk (diagonal blocks): attention-like masked quadratic form
-    L = torch.exp(segsum(dA.movedim(-1, -2)))  # (b,nc,h,l,l)
-    scores = torch.einsum("bcihn,bcjhn->bchij", Cc, Bc)
-    gated = scores * L  # lower-triangular
-    xdt = xc * dtc[..., None]  # (b,nc,l,h,p)
+    cdt = torch.bfloat16 if bf16 else f32
+    L = torch.exp(segsum(dA.movedim(-1, -2))).to(cdt)  # (b,nc,h,l,l)
+    scores = torch.einsum("bcihn,bcjhn->bchij", Cc.to(cdt).to(f32),
+                          Bc.to(cdt).to(f32)).to(cdt)
+    gated = (scores * L).to(f32)  # lower-triangular
+    xdt = (xc * dtc[..., None]).to(cdt).to(f32)  # (b,nc,l,h,p)
     y_diag = torch.einsum("bchij,bcjhp->bcihp", gated, xdt)
 
     # 2) per-chunk end states

@@ -5,3 +5,5 @@ from repro_torch.runtime.ft import (
     FaultTolerantTrainer,
     WorkerFailure,
 )
+from repro_torch.runtime.compress import (make_int8_compressor,
+                                         int8_roundtrip_error)

@@ -132,12 +132,18 @@ def test_init_has_the_reference_structure():
 def test_unported_archs_and_families_raise():
     """Every arch and family of the reference is ported now: the
     deepseek-v2 config resolves and ``get_model`` builds each family.
-    What stays refused, with NotImplementedError naming ROADMAP.md: a loss
-    under the forward-only K4 (``attn_backend="pallas"``), MLA under
-    'pallas' (the kernel takes one head dim for q, k and v), the losses of
-    the vlm, MLA and encdec models (their training is still to port), the
-    'chunked_tri' backend and ``ssd_bf16``; an unknown arch raises
-    KeyError."""
+    Until the training slice of the last three archs, the losses of the
+    vlm, MLA and encdec models, the 'chunked_tri' backend and ``ssd_bf16``
+    raised here; now the three losses run (finite, with the decoder's
+    metrics; held against the reference in ``test_torch_train_archs``),
+    a 'chunked_tri' prefill gives the 'chunked' one's logits within the
+    reference's bf16-probability tolerance, and an ``ssd_bf16`` mamba2
+    builds and trains. What stays refused, with NotImplementedError
+    naming ROADMAP.md: a loss under the forward-only K4
+    (``attn_backend="pallas"``, the three new losses included) and MLA
+    under 'pallas' (the kernel takes one head dim for q, k and v); an
+    unknown arch raises KeyError."""
+    from repro_torch.configs import concrete_inputs
     assert get_config("deepseek-v2-236b").use_mla
     with pytest.raises(KeyError, match="ROADMAP.md"):
         get_config("no-such-arch")
@@ -158,13 +164,25 @@ def test_unported_archs_and_families_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_model(mla.replace(attn_backend="pallas")).init(0, device="cpu")
     for arch in ("qwen2-vl-72b", "deepseek-v2-236b", "seamless-m4t-large-v2"):
-        m = get_model(get_smoke_config(arch))
+        acfg = get_smoke_config(arch)
+        m = get_model(acfg)
+        params = m.init(0, device="cpu")
+        b = concrete_inputs(acfg, "train_4k", scale=256, device="cpu")
+        with torch.no_grad():
+            loss, metrics = m.loss_fn(params, b)
+        assert torch.isfinite(loss) and set(metrics) == {"ce", "z_loss",
+                                                         "aux"}
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            m.loss_fn(m.init(0, device="cpu"), batch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model(cfg.replace(attn_backend="chunked_tri")).prefill(
-            get_model(cfg).init(0, device="cpu"), {"tokens": tokens},
-            get_model(cfg).init_cache(2, 9, device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model(get_smoke_config("mamba2-1.3b").replace(
-            ssd_bf16=True)).init(0, device="cpu")
+            get_model(acfg.replace(attn_backend="pallas")).loss_fn(params, b)
+    params = get_model(cfg).init(0, device="cpu")
+    with torch.no_grad():
+        logits = [get_model(cfg.replace(attn_backend=be, attn_chunk=4))
+                  .prefill(params, {"tokens": tokens},
+                           get_model(cfg).init_cache(2, 9, device="cpu"))[0]
+                  for be in ("chunked_tri", "chunked")]
+    torch.testing.assert_close(logits[0], logits[1], rtol=2e-2, atol=2e-2)
+    scfg = get_smoke_config("mamba2-1.3b").replace(ssd_bf16=True)
+    with torch.no_grad():
+        loss, _ = get_model(scfg).loss_fn(
+            get_model(scfg).init(0, device="cpu"), batch)
+    assert torch.isfinite(loss)

@@ -91,14 +91,67 @@ def test_ssd_decode_step_matches():
 
 
 def test_ssd_bf16_variant_is_not_ported():
-    x = torch.zeros((1, 4, 2, 4))
-    B = torch.zeros((1, 4, 1, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tssd.ssd_chunked(x, torch.zeros((1, 4, 2)), torch.zeros(2), B, B,
-                         chunk=4, bf16=True)
-    cfg = get_smoke_config(ARCH).replace(ssd_bf16=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_ssm_model.init(cfg, device="cpu")
+    """``ssd_chunked(bf16=True)`` and a config with ``ssd_bf16`` raised
+    NotImplementedError until the variant was ported. Now the variant
+    runs, on the reference's own inputs (``tests/test_kernels.py``:
+    bf16 x, B and C, chunk 16): y equals the reference's bf16 variant
+    within its bf16 tolerance (5e-2) and stays within 2% of the float32
+    scan's largest |y|, as the reference's test asks; the state is
+    float32 in both (within 1e-4). A float32 model with ``ssd_bf16``
+    builds, and its loss runs the variant (it differs from the float32
+    scan's loss)."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 1, (2, 64, 4, 16))
+    dt = rng.uniform(0.001, 0.1, (2, 64, 4))
+    A = -rng.uniform(0.5, 2, (4,))
+    B = rng.normal(0, 1, (2, 64, 1, 32))
+    C = rng.normal(0, 1, (2, 64, 1, 32))
+    j_args = (jnp.asarray(x, jnp.bfloat16), jnp.asarray(dt, jnp.float32),
+              jnp.asarray(A, jnp.float32), jnp.asarray(B, jnp.bfloat16),
+              jnp.asarray(C, jnp.bfloat16))
+    t_args = tuple(_t(a, "bfloat16" if a.dtype == jnp.bfloat16 else None)
+                   for a in j_args)
+    want_y, want_s = jssd.ssd_chunked(*j_args, chunk=16, bf16=True)
+    y16, s16 = tssd.ssd_chunked(*t_args, chunk=16, bf16=True)
+    assert y16.dtype == torch.bfloat16 and s16.dtype == torch.float32
+    _close(y16, want_y, TOL["bfloat16"])
+    _close(s16, want_s, TOL["float32"])
+    y32, _ = tssd.ssd_chunked(*t_args, chunk=16)
+    rel = float((y32.float() - y16.float()).abs().max()
+                / y32.float().abs().max())
+    assert rel < 0.02, rel
+    cfg = get_smoke_config(ARCH)
+    params = t_ssm_model.init(cfg.replace(ssd_bf16=True), device="cpu")
+    params = params.float()
+    row = rng.integers(0, cfg.vocab, (2, 17), dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(row[:, :-1].copy()),
+             "labels": torch.from_numpy(row[:, 1:].copy())}
+    with torch.no_grad():
+        l16 = t_ssm_model.loss_fn(cfg.replace(ssd_bf16=True), params, batch)
+        l32 = t_ssm_model.loss_fn(cfg, params, batch)
+    assert torch.isfinite(l16[0]) and float(l16[0]) != float(l32[0])
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [(2, 64, 4, 16, 1, 32, 16),
+                                                (1, 50, 4, 8, 2, 16, 16),
+                                                (1, 40, 2, 8, 1, 8, 64)])
+def test_ssd_bf16_variant_matches_the_reference(b, s, h, p, g, n, chunk):
+    """The bf16 variant against the reference's, also with a ragged
+    length (the dt = 0 padding), two B/C groups and one padded chunk: y
+    within the bf16 tolerance, the float32 state within 1e-4."""
+    rng = np.random.default_rng(s + n)
+    j_args = (jnp.asarray(rng.normal(0, 1, (b, s, h, p)), jnp.bfloat16),
+              jnp.asarray(rng.uniform(0.001, 0.1, (b, s, h)), jnp.float32),
+              jnp.asarray(-rng.uniform(0.5, 2, (h,)), jnp.float32),
+              jnp.asarray(rng.normal(0, 1, (b, s, g, n)), jnp.bfloat16),
+              jnp.asarray(rng.normal(0, 1, (b, s, g, n)), jnp.bfloat16))
+    t_args = tuple(_t(a, "bfloat16" if a.dtype == jnp.bfloat16 else None)
+                   for a in j_args)
+    want_y, want_s = jssd.ssd_chunked(*j_args, chunk=chunk, bf16=True)
+    got_y, got_s = tssd.ssd_chunked(*t_args, chunk=chunk, bf16=True)
+    assert got_y.shape == (b, s, h, p) and got_s.shape == (b, h, p, n)
+    _close(got_y, want_y, TOL["bfloat16"])
+    _close(got_s, want_s, TOL["float32"])
 
 
 def _block(dtype, seed=0):

@@ -26,7 +26,7 @@ from repro.configs import get_smoke_config as j_smoke
 from repro.models import get_model as j_get_model
 
 from repro_torch import convert
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import concrete_inputs, get_smoke_config
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.launch.serve import serve
 from repro_torch.launch.steps import init_state
@@ -186,8 +186,10 @@ def test_unported_parts_raise_and_nothing_falls_back_to_the_cpu(
     """``loss_fn`` and ``ssm.forward`` raised NotImplementedError until the
     training slice was ported; they now run, and the loss on the port's own
     float32 parameters equals the reference's on the same values within
-    1e-5. ``ssd_bf16`` still raises, and no entry point, the new train
-    state included, falls back to the CPU unasked."""
+    1e-5. ``ssd_bf16`` raised too until its variant was ported; now its
+    loss equals the reference's ``ssd_bf16`` loss within 1e-5. No entry
+    point, the new train state and ``concrete_inputs`` included, falls
+    back to the CPU unasked."""
     cfg = get_smoke_config(ARCH)
     m = get_model(cfg)
     params = m.init(0, device="cpu").float()
@@ -203,11 +205,16 @@ def test_unported_parts_raise_and_nothing_falls_back_to_the_cpu(
     j_loss, _ = jax.jit(j_get_model(j_smoke(ARCH)).loss_fn)(
         jp, {k: jnp.asarray(v) for k, v in batch.items()})
     np.testing.assert_allclose(float(loss), float(j_loss), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model(cfg.replace(ssd_bf16=True)).init(0, device="cpu")
+    with torch.no_grad():
+        loss16, _ = get_model(cfg.replace(ssd_bf16=True)).loss_fn(params, tb)
+    j_loss16, _ = jax.jit(j_get_model(j_smoke(ARCH).replace(
+        ssd_bf16=True)).loss_fn)(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(loss16), float(j_loss16), rtol=1e-5)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: m.init(0), lambda: m.init_cache(2, 8),
                  lambda: serve(cfg, batch=1, prompt_len=4, gen=1),
-                 lambda: init_state(cfg, 0)):
+                 lambda: init_state(cfg, 0),
+                 lambda: concrete_inputs(cfg, "train_4k", scale=256)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
