@@ -176,6 +176,22 @@ port's entry points:
                 float32 scan at mamba2-1.3b's layer shape. Phase 23 holds
                 one SMOKE float32 step of these archs on the card against
                 the CPU, and the int8 codes of its gradients
+ 26. sharding   one rank: make_fleet_mesh() on the card, train_ppo at
+                bench_fleet's configuration for 3 rounds with mesh= equal
+                to mesh=None bit for bit with the same K1/K3 launches; the
+                SMOKE smollm-135m train state re-laid onto
+                make_smoke_mesh() by reshard_state, saved and restored by
+                load_checkpoint(shardings=), bit for bit on the card. Two
+                ranks spawned on the one card (gloo over CUDA tensors, the
+                kernels phase 2 built): fleet_step at 4096 flows (phase 9's
+                world), topology_step at 4096 flows over 3 links (phase
+                19's, no objectives) and the reference's F = 8 step with
+                floors and caps, the flow axis split 2 ways, against the
+                unsharded call within 1e-6 (obs, buffers, throughputs) and
+                1e-5 (reward); K3 on the assembled operands bit for bit;
+                one episode batch (16 envs x 4 flows) within 1e-4 of
+                mesh=None; per rank the round wall ms, K1 and K3 launches
+                and flow_all_reduce calls and bytes per step and per round
 
 It prints each phase's wall time, its findings on earlier lines, one JSON
 line with every kernel's numbers, the nvidia-smi line, and ends with the
@@ -532,6 +548,14 @@ TRAIN_K1_CALL = 1 + 100 + 2 * 11 + 5
 FA_PREFIX, FA_PATH_KERNEL = "flash_attention_", "flash_attention_bf16_kernel"
 SSD_PREFIX, SSD_PATH_KERNEL = "ssd_scan_", "ssd_scan_bf16_kernel"
 
+
+SHARD_RANKS = 2              # phase 26: ranks sharing the one card over gloo
+SHARD_ROUNDS = 3             # phase 26: train_ppo rounds, mesh= against None
+SHARD_FLOOR_FLOWS = 8        # the reference's floors-and-caps world
+# the reference's limits for a sharded step (tests/test_fleet_scaleout.py:
+# 467-473) and PERF.md section 2's for one episode batch
+SHARD_TOL = {"state": 1e-6, "reward": 1e-5, "episode": 1e-4}
+SHARD_TIMEOUT_S = 300        # the spawned ranks' join limit
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
@@ -4189,6 +4213,360 @@ def ssd_bf16_check(torch, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: sharding (flow-sharded fleets on a DeviceMesh, the LM meshes)
+# ---------------------------------------------------------------------------
+
+
+def shard_max_err(torch, a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def shard_step(torch, mesh, name, fn, params, state, acts, world, per_flow):
+    """``fn`` (fleet_step or topology_step) unsharded, then with the flow
+    axis split over ``mesh`` (DTensor state and per-flow keywords), from
+    the same inputs: the errors of the gathered outputs, both calls' ms,
+    the sharded call's K1/K3 launches and its flow_all_reduce calls and
+    bytes."""
+    from repro_torch.sharding import (shard_fleet_state, shard_flow_schedule,
+                                      shard_flow_objectives, shard_path_spec)
+    from repro_torch.sharding.fleet import FLOW_COLLECTIVES, full_flows
+    sharders = {"flows": shard_flow_schedule,
+                "objectives": shard_flow_objectives,
+                "paths": shard_path_spec}
+    sharded = {k: sharders[k](v, mesh) for k, v in per_flow.items()}
+    sstate = shard_fleet_state(state, mesh)
+
+    def call(sharded_call):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = (fn(params, sstate, acts, **world, **sharded) if sharded_call
+               else fn(params, state, acts, **world, **per_flow))
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    ref, plain_first = call(False)
+    before = dict(FLOW_COLLECTIVES)
+    reset_launches()
+    out, first = call(True)
+    launches = read_launches()
+    calls = FLOW_COLLECTIVES["calls"] - before["calls"]
+    n_bytes = FLOW_COLLECTIVES["bytes"] - before["bytes"]
+    _, again = call(True)
+    _, plain_again = call(False)
+    got = {"obs": full_flows(out[1], -2),
+           "buffers": full_flows(out[0].buffers, -2),
+           "throughputs": full_flows(out[0].throughputs, -2)}
+    want = {"obs": ref[1], "buffers": ref[0].buffers,
+            "throughputs": ref[0].throughputs}
+    return {"name": name, "F": int(acts.shape[1]),
+            "placement": str(out[1].placements),
+            "err": {k: shard_max_err(torch, got[k], want[k]) for k in got},
+            "err_reward": shard_max_err(torch, out[2].to_local(), ref[2]),
+            "ms": [first, again], "plain_ms": [plain_first, plain_again],
+            "k1": launches["sim_interval"], "k3": launches["contention"],
+            "calls": calls, "bytes": n_bytes}
+
+
+def shard_floor_world(torch):
+    """The reference's F = 8 world with floors and caps
+    (tests/test_fleet_scaleout.py:430-446) on the card, E = 1."""
+    from repro_torch.core.fleet import (FlowSchedule, make_flow_objective,
+                                        stack_flow_objectives)
+    from repro_torch.core.schedule import ScheduleTable
+    F = SHARD_FLOOR_FLOWS
+    rng = np.random.default_rng(0)
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32))[None].cuda()
+    table = ScheduleTable(to(rng.uniform(0.05, 0.5, (2, 3))),
+                          to(rng.uniform(0.5, 2.0, (2, 3))), to(0.5))
+    ts = rng.uniform(0.0, 1.0, F)
+    flows = FlowSchedule(to(ts), to(ts + rng.uniform(0.5, 2.0, F)))
+    obj = stack_flow_objectives([make_flow_objective(
+        rate_floor=rng.uniform(0, 1, F),
+        rate_cap=np.where(rng.random(F) < 0.5, np.inf, 0.8), device="cuda")])
+    return table, flows, obj
+
+
+def shard_checks(torch, rank):
+    """Phase 26's checks on one rank of SHARD_RANKS sharing the card (each
+    rank holds the same inputs, drawn from seeds)."""
+    from repro_torch.core.fleet import (FleetState, FlowSchedule, fleet_reset,
+                                        fleet_step, _solve_fleet_rates)
+    from repro_torch.core.ppo import init_agent, _make_episode_fn
+    from repro_torch.core.simulator import _table_or_params
+    from repro_torch.core.topology import topology_step
+    from repro_torch.launch.mesh import make_fleet_mesh
+    from repro_torch.scenarios.families import poisson_arrivals
+    from repro_torch.sharding import shard_flow_schedule
+    from repro_torch.sharding.fleet import (FLOW_COLLECTIVES, flow_gather,
+                                            flow_rows, flow_scope, scope_of,
+                                            to_local)
+    mesh = make_fleet_mesh()
+    res = {"rank": rank, "mesh": list(mesh.shape),
+           "device": mesh.device_type}
+    params = fleet_params("cuda")
+    F = SCALE_FLOWS
+    # phase 9's world, its clock moved into the arrivals by 3 steps
+    ts, te = poisson_arrivals(F, FLEET_HORIZON, seed=7, hold_frac=0.01)
+    flows = FlowSchedule(*(torch.from_numpy(x)[None].cuda()
+                           for x in (ts, te)))
+    zeros = torch.zeros((1, F, 3), device="cuda")
+    acts = torch.full((1, F, 3), 8.0, device="cuda")
+    state = FleetState(buffers=torch.zeros((1, F, 2), device="cuda"),
+                       threads=acts.clone(), throughputs=zeros,
+                       t=torch.zeros(1, device="cuda"),
+                       prev_throughputs=zeros,
+                       delivered=torch.zeros((1, F), device="cuda"))
+    topo, _, _ = topology_scale_world(torch, F)
+    tstate = state
+    for _ in range(3):
+        state, _, _ = fleet_step(params, state, acts, flows=flows)
+        tstate, _, _ = topology_step(params, tstate, acts, **topo)
+    res["fleet"] = shard_step(torch, mesh, "fleet_step", fleet_step, params,
+                              state, acts, {}, {"flows": flows})
+    res["topology"] = shard_step(
+        torch, mesh, "topology_step", topology_step, params, tstate, acts,
+        {"graph": topo["graph"]}, {"flows": topo["flows"],
+                                   "paths": topo["paths"]})
+    table, fflows, obj = shard_floor_world(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    fstate = fleet_reset(params, 1, SHARD_FLOOR_FLOWS, flows=fflows,
+                         table=table, substeps=6, objectives=obj,
+                         generator=gen)
+    res["floors"] = shard_step(
+        torch, mesh, "fleet_step floors+caps", fleet_step, params, fstate,
+        torch.full((1, SHARD_FLOOR_FLOWS, 3), 8.0, device="cuda"),
+        {"table": table, "substeps": 6, "fairness_coef": 0.5},
+        {"flows": fflows, "objectives": obj})
+    # K3 on the operands each rank assembles, against the unsharded launch
+    tab = _table_or_params(params, None, 1)
+    sflows = shard_flow_schedule(flows, mesh)
+    full = _solve_fleet_rates(params, tab, acts, flows, state.t, 50, None)
+    with flow_scope(scope_of(sflows)):
+        rows = _solve_fleet_rates(params, tab, flow_rows(acts, 1),
+                                  to_local(sflows), state.t, 50, None)
+        res["k3_bitwise"] = bool(torch.equal(flow_gather((rows, 2))[0],
+                                             full))
+    # one PPO episode batch at bench_fleet's configuration, then its round
+    cfg = fleet_config("cuda", episodes=FLEET_ENVS, n_envs=FLEET_ENVS,
+                       n_flows=FLEET_FLOWS, seed=5)
+    wl = fleet_draw(FLEET_ENVS)(0)
+    rng = np.random.default_rng(5)
+    to = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
+    draws = dict(threads0=to(rng.integers(1, 16, (FLEET_ENVS, FLEET_FLOWS,
+                                                  3))),
+                 t0_draw=to(rng.random(FLEET_ENVS)),
+                 noise=to(rng.normal(size=(cfg.max_steps, FLEET_ENVS,
+                                           FLEET_FLOWS, 3))))
+    episode = {}
+    for name in ("warm-up", "none", "sharded", "sharded_again", "none_again"):
+        fl = (shard_flow_schedule(wl.flows, mesh) if name.startswith("sh")
+              else wl.flows)
+        fn = _make_episode_fn(params, cfg, randomize_t0=True)
+        before = dict(FLOW_COLLECTIVES)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, rew, _ = fn(init_agent(cfg), wl.tables, None, flows=fl, **draws)
+        torch.cuda.synchronize()
+        episode[name] = dict(
+            ms=(time.perf_counter() - t0) * 1e3, rew=rew.cpu(),
+            params={n: t.detach().cpu() for n, t in
+                    st["params"].named_parameters()},
+            launches=read_launches(),
+            calls=FLOW_COLLECTIVES["calls"] - before["calls"],
+            bytes=FLOW_COLLECTIVES["bytes"] - before["bytes"])
+    a, b = episode["none"], episode["sharded"]
+    res["episode"] = {
+        "err_rewards": shard_max_err(torch, b["rew"], a["rew"]),
+        "err_params": max(shard_max_err(torch, b["params"][n], a["params"][n])
+                          for n in a["params"]),
+        "round_ms": [episode[k]["ms"] for k in ("sharded", "sharded_again")],
+        "round_ms_unsharded": [episode[k]["ms"] for k in ("none",
+                                                          "none_again")],
+        "k1": b["launches"]["sim_interval"], "k3": b["launches"]["contention"],
+        "k1_unsharded": a["launches"]["sim_interval"],
+        "k3_unsharded": a["launches"]["contention"],
+        "calls_per_round": b["calls"], "bytes_per_round": b["bytes"]}
+    return res
+
+
+def shard_rank(rank, world, d):
+    """Phase 26's rank ``rank`` of ``world`` in a spawned process: joins a
+    gloo group on a FileStore in ``d`` over CUDA tensors on the one card,
+    runs ``shard_checks`` and writes ``d/rank<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{d}/store",
+                            rank=rank, world_size=world)
+    try:
+        res = shard_checks(torch, rank)
+        with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharding(torch, card):
+    """26. Sharding. One rank: make_fleet_mesh() on the card, train_ppo at
+    bench_fleet's configuration for SHARD_ROUNDS rounds with mesh= equal
+    to mesh=None bit for bit with the same K1/K3 launches; the SMOKE
+    smollm-135m train state re-laid onto make_smoke_mesh() by
+    reshard_state, saved and restored by load_checkpoint(shardings=),
+    bit for bit on the card. Two ranks sharing the card (spawned, gloo over
+    CUDA tensors, kernels built by phase 2): fleet_step at SCALE_FLOWS,
+    topology_step at SCALE_FLOWS over 3 links and the reference's
+    floors-and-caps step against the unsharded call within 1e-6 (obs,
+    buffers, throughputs) and 1e-5 (reward); K3 on assembled operands bit
+    for bit; one episode batch within 1e-4 of mesh=None."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import train_ppo
+    from repro_torch.launch.mesh import make_fleet_mesh, make_smoke_mesh
+    from repro_torch.launch.steps import init_state
+    from repro_torch.runtime import reshard_state
+    from repro_torch.sharding import param_specs, to_shardings
+    from repro_torch.sharding.fleet import FLOW_COLLECTIVES
+    out = {}
+    torch.cuda.set_device(0)
+    mesh = make_fleet_mesh()
+    if tuple(mesh.shape) != (1,) or mesh.device_type != "cuda":
+        fail(f"make_fleet_mesh() is {mesh}, not one rank on the card")
+    params = fleet_params("cuda")
+    cfg = fleet_config("cuda", episodes=SHARD_ROUNDS * FLEET_ENVS,
+                       n_envs=FLEET_ENVS, n_flows=FLEET_FLOWS)
+    runs = {}
+    for name, m in (("none", None), ("mesh", mesh), ("mesh_again", mesh),
+                    ("none_again", None)):
+        before = FLOW_COLLECTIVES["calls"]
+        reset_launches()
+        t0 = time.perf_counter()
+        r = train_ppo(params, cfg, resample=fleet_draw(FLEET_ENVS), mesh=m)
+        torch.cuda.synchronize()
+        runs[name] = (r, read_launches(), FLOW_COLLECTIVES["calls"] - before,
+                      time.perf_counter() - t0)
+    (a, la, _, _), (b, lb, cb, _) = runs["none"], runs["mesh"]
+    same = a.history == b.history and all(
+        torch.equal(p, q) for p, q in zip(a.params.parameters(),
+                                          b.params.parameters()))
+    sb = [runs[k][3] for k in ("mesh", "mesh_again")]
+    sa = [runs[k][3] for k in ("none", "none_again")]
+    out["one_rank"] = dict(launches=lb, launches_none=la, calls=cb,
+                           bitwise=same, s=sb, s_none=sa)
+    print(f"[sharding] ({card}) one rank: train_ppo(mesh=make_fleet_mesh()) "
+          f"{SHARD_ROUNDS} rounds of {FLEET_ENVS} envs x {FLEET_FLOWS} flows "
+          f"against mesh=None: bit for bit {same}; launches {json.dumps(lb)} "
+          f"(mesh=None {json.dumps(la)}); flow_all_reduce calls {cb}; "
+          f"s {json.dumps(sb)} against {json.dumps(sa)} (in turns: none, "
+          f"mesh, mesh, none)")
+    if not same or lb != la or cb != 0 or not (lb["sim_interval"]
+                                               and lb["contention"]):
+        fail("train_ppo on a one-rank mesh is not the unsharded run")
+    lm_cfg = get_smoke_config(TRAIN_ARCH)
+    state = init_state(lm_cfg, 0)
+    smoke = make_smoke_mesh()
+    pspecs = param_specs(lm_cfg, state["params"], smoke)
+    shardings = to_shardings(smoke, {"params": pspecs, "opt": {
+        "m": pspecs, "v": pspecs, "step": ()}})
+    laid = reshard_state(state, lm_cfg, smoke)
+    ckpt = os.path.join(ROOT, "build", "shard_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        save_checkpoint(ckpt, laid, 1, use_engine=False)
+        loaded, step = load_checkpoint(ckpt, state, shardings=shardings)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    leaves = [(loaded["params"][n], laid["params"][n], t)
+              for n, t in state["params"].items()]
+    leaves += [(loaded["opt"][k][n], laid["opt"][k][n], state["opt"][k][n])
+               for k in ("m", "v") for n in state["params"]]
+    ok = all(isinstance(x, DTensor) and isinstance(y, DTensor)
+             and x.to_local().device.type == "cuda"
+             and torch.equal(x.to_local(), t) and torch.equal(y.to_local(), t)
+             for x, y, t in leaves)
+    out["lm"] = dict(leaves=len(leaves), bitwise=ok, step=step)
+    print(f"[sharding] ({card}) make_smoke_mesh() {tuple(smoke.shape)} "
+          f"{smoke.mesh_dim_names} on {smoke.device_type}: reshard_state and "
+          f"load_checkpoint(shardings=) of SMOKE {TRAIN_ARCH}'s train state, "
+          f"{len(leaves)} leaves, bit for bit on the card {ok}")
+    if not ok or step != 1:
+        fail("the re-laid or restored LM state is not the state")
+    dist.destroy_process_group()
+
+    d = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=shard_rank, args=(r, SHARD_RANKS, d))
+             for r in range(SHARD_RANKS)]
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=SHARD_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * SHARD_RANKS:
+        shutil.rmtree(d, ignore_errors=True)
+        fail(f"the sharded ranks exited with {codes}")
+    ranks = []
+    for r in range(SHARD_RANKS):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(d, ignore_errors=True)
+    for res in ranks:
+        for key in ("fleet", "topology", "floors"):
+            s = res[key]
+            print(f"[sharding] ({card}) rank {res['rank']} of "
+                  f"{SHARD_RANKS} on one card: {s['name']} F={s['F']} "
+                  f"{s['placement']}: max err {json.dumps(s['err'])}, reward "
+                  f"{s['err_reward']}; ms sharded {json.dumps(s['ms'])}, "
+                  f"unsharded {json.dumps(s['plain_ms'])} (in turns: "
+                  f"unsharded, sharded, sharded, unsharded); K1 {s['k1']}, "
+                  f"K3 {s['k3']}; flow_all_reduce per step {s['calls']} "
+                  f"calls, {s['bytes']} bytes")
+            if not (max(s["err"].values()) <= SHARD_TOL["state"]
+                    and s["err_reward"] <= SHARD_TOL["reward"]
+                    and s["k1"] == 1 and s["k3"] == 1 and s["calls"] > 0
+                    and "Shard" in s["placement"]):
+                fail(f"rank {res['rank']}: the sharded {s['name']} "
+                     f"disagrees with the unsharded one or skipped a kernel")
+        e = res["episode"]
+        print(f"[sharding] ({card}) rank {res['rank']}: K3 on the assembled "
+              f"operands bit for bit {res['k3_bitwise']}; one episode batch "
+              f"({FLEET_ENVS} envs x {FLEET_FLOWS} flows sharded "
+              f"{SHARD_RANKS} ways) against mesh=None: rewards "
+              f"{e['err_rewards']}, params {e['err_params']}; round wall ms "
+              f"{json.dumps(e['round_ms'])} (unsharded "
+              f"{json.dumps(e['round_ms_unsharded'])}; after a warm-up "
+              f"round, in turns); K1 {e['k1']}, K3 {e['k3']} "
+              f"(unsharded {e['k1_unsharded']}, {e['k3_unsharded']}); "
+              f"flow_all_reduce per round {e['calls_per_round']} calls, "
+              f"{e['bytes_per_round']} bytes (the gradients' sums "
+              f"included)")
+        if not (res["k3_bitwise"] and e["err_rewards"] <= SHARD_TOL["episode"]
+                and e["err_params"] <= SHARD_TOL["episode"]
+                and e["k1"] == e["k1_unsharded"] > 0
+                and e["k3"] == e["k3_unsharded"] > 0):
+            fail(f"rank {res['rank']}: the sharded episode batch or K3 "
+                 f"disagrees")
+    out["ranks"] = ranks
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4453,7 +4831,13 @@ def main():
     family_phase(24)
     # --- 25. their training at full width; chunked_tri; ssd_bf16 ----------
     tl = phase_train_last(torch, card, kept)
+    kept.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
     lap(25)
+    # --- 26. sharding: flow-sharded fleets on a DeviceMesh, the LM meshes --
+    sh = phase_sharding(torch, card)
+    lap(26)
     print(f"[wall] per phase s {json.dumps(walls)}; total "
           f"{sum(walls.values()):.2f} s")
     print(f"[profiler] device_ms windows: {PROFILER_WINDOWS['calls']} "
@@ -4497,6 +4881,10 @@ def main():
     kernels[0]["launches_topology_compact_ppo"] = (
         tsc["ppo_launches"]["sim_interval"])
     kernels[0]["launches_train"] = tr["launches"]["sim_interval"]
+    kernels[0]["launches_sharding"] = (
+        sh["one_rank"]["launches"]["sim_interval"])
+    kernels[0]["launches_sharding_ranks"] = [
+        r["episode"]["k1"] for r in sh["ranks"]]
     for name, r in {**ft["k1"], **tpf["k1"], **tsc["k1"],
                     "train_controller": tr["k1"]}.items():
         kernels[0][f"at_{name}"] = {k: r[k] for k in (
@@ -4533,6 +4921,8 @@ def main():
         "launches_topology_dense_scale": sum(
             tsc["launches"][f"{label}_dense"]["contention"]
             for label in ("plain", "capped")),
+        "launches_sharding": sh["one_rank"]["launches"]["contention"],
+        "launches_sharding_ranks": [r["episode"]["k3"] for r in sh["ranks"]],
     })
     for name, r in {**k3, **tp["k3"], **ft["k3"], **tpf["k3"],
                     **tsc["k3"]}.items():

@@ -12,8 +12,12 @@ it and nothing of JAX. Layers ported so far:
   repro_torch.scenarios  — scenario families, ScenarioSpec, the fleet
                            samplers and the fleet evaluation harness
   repro_torch.runtime    — heartbeats (the fleet controller's health
-                           check), the straggler detector and the
-                           fault-tolerant trainer
+                           check), the straggler detector, the
+                           fault-tolerant trainer, int8 gradient
+                           compression and the elastic re-mesh
+  repro_torch.sharding   — the flow axis of fleets and topologies split
+                           over a torch DeviceMesh, and the LM sharding
+                           rules (meshes: repro_torch.launch.mesh)
   repro_torch.transfer   — the real 3-stage transfer engine (a copy)
   repro_torch.checkpoint — atomic, sha256-verified checkpoints through the
                            transfer engine, blocking or async

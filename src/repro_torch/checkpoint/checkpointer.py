@@ -15,7 +15,9 @@ Writes are atomic (tmp dir + rename); ``keep`` old checkpoints are
 retained; the blob's sha256 is verified on restore. A bf16 leaf is stored
 as its raw 2-byte words under the dtype string ``"bfloat16"`` (the
 reference's), so a checkpoint written by either package reads back in the
-other.
+other. A DTensor leaf is saved as its full tensor, and ``load_checkpoint``'s
+``shardings`` lays the restored leaves onto a mesh
+(``repro_torch.runtime.elastic``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import hashlib
 import json
 import os
 import shutil
+import sys
 import threading
 import time
 
@@ -92,18 +95,26 @@ def _rebuild(like, arrays, prefix=()):
     return arr
 
 
+def _full(leaf):
+    """A DTensor leaf's full tensor; any other leaf as it is."""
+    if "torch.distributed.tensor" not in sys.modules:
+        return leaf   # no DTensor can exist yet
+    from repro_torch.runtime.elastic import full_tensor
+    return full_tensor(leaf)
+
+
 def _host(leaf):
-    """A host copy of one leaf: a CPU tensor for a tensor, else a NumPy
-    array."""
+    """A host copy of one leaf: a CPU tensor for a tensor (a DTensor's full
+    tensor), else a NumPy array."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True)
+        return _full(leaf).detach().to("cpu", copy=True)
     return np.array(leaf)
 
 
 def _leaf_bytes(leaf):
     """-> (raw bytes, dtype string, shape)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu().contiguous()
+        t = _full(leaf).detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().tobytes(), BF16, list(t.shape)
         leaf = t.numpy()
@@ -196,8 +207,12 @@ def latest_step(ckpt_dir):
     return max(steps) if steps else None
 
 
-def load_checkpoint(ckpt_dir, like, *, step=None):
-    """-> (state, step). Verifies sha256."""
+def load_checkpoint(ckpt_dir, like, *, step=None, shardings=None):
+    """-> (state, step). Verifies sha256. ``shardings`` (optional tree of
+    ``repro_torch.sharding.rules.Sharding``, e.g. ``to_shardings`` of the
+    specs) lays each leaf onto its mesh and placements after the check:
+    the elastic-scaling restore path. Every rank of the meshes reads the
+    checkpoint and calls this alike."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
@@ -208,7 +223,11 @@ def load_checkpoint(ckpt_dir, like, *, step=None):
         blob = f.read()
     if hashlib.sha256(blob).hexdigest() != manifest["sha256"]:
         raise IOError(f"checkpoint {d} corrupt: sha mismatch")
-    return deserialize_state(blob, manifest["index"], like), step
+    state = deserialize_state(blob, manifest["index"], like)
+    if shardings is not None:
+        from repro_torch.runtime.elastic import apply_shardings
+        state = apply_shardings(state, shardings)
+    return state, step
 
 
 class AsyncCheckpointer:

@@ -29,6 +29,12 @@ gathers that compact set (ascending flow order, empty slots filled with F),
 contends and integrates it, and scatters it back through an F+1-row buffer
 whose last row is dropped — no host sync inside a step.
 
+Sharded fleets: given ``DTensor`` leaves split over a mesh's "flows" axis
+(``repro_torch.sharding.fleet.shard_*``), each entry point runs on the
+rank's own flows and returns outputs sharded the same way: the reductions
+over F are one ``all_reduce`` each, and the contention solve assembles its
+full-F operands and keeps the rank's rows (``sharding.fleet``).
+
 Liveness faults reach the fleet as edits of these structures
 (``repro_torch.scenarios.faults``): a kill with a restart becomes a
 ``FlowSchedule`` down window [down_start, down_end) in which the flow is
@@ -51,6 +57,9 @@ from repro_torch.core.utility import (utility, needed_rate, needed_rate_np,
 from repro_torch.device import as_f32, resolve_device
 from repro_torch.kernels.contention.ops import contention_rates
 from repro_torch.kernels.sim_step.ops import sim_interval_batch
+from repro_torch.sharding.fleet import (STATE_DIMS, flow_all_reduce,
+                                        flow_gather, flow_rows, flow_sharded,
+                                        global_flows, local_flows)
 
 INF = float("inf")
 
@@ -476,12 +485,31 @@ def _fleet_substep_rates(params: SimParams, table: ScheduleTable, threads,
             * act[..., None])
 
 
+def _full_operands(threads, flows, objectives, *extra):
+    """A solve's per-flow operands at full F (in a flow scope; as they are
+    outside one): threads (E, F, 3), the schedule and objective fields
+    (E, F), and ``extra`` (tensor, flow dim) pairs, in one gather."""
+    pairs = [(threads, -2)]
+    pairs += [(x, -1) for x in flows if x is not None]
+    if objectives is not None:
+        pairs += [(x, -1) for x in objectives]
+    full = iter(flow_gather(*pairs, *extra))
+    threads = next(full)
+    flows = type(flows)(*(None if x is None else next(full) for x in flows))
+    if objectives is not None:
+        objectives = type(objectives)(*(next(full) for _ in objectives))
+    return (threads, flows, objectives, *full)
+
+
 def _solve_fleet_rates(params: SimParams, table: ScheduleTable, threads,
                        flows: FlowSchedule, t0, substeps: int, objectives):
     """(E, S, F, 3) contention rates through K3: the schedule and activity
     gathers here, then the whole solve of every env and substep in one
     launch on the one-link embedding (onpath all ones), ``rounds=0`` — the
-    single-bottleneck fleet model does not water-fill."""
+    single-bottleneck fleet model does not water-fill. In a flow scope the
+    operands are assembled to full F and the rank's rows of the rates
+    kept."""
+    threads, flows, objectives = _full_operands(threads, flows, objectives)
     ts, tpt, bw = _substep_conditions(params, table, t0, substeps)
     act = active_at(flows, ts)                         # (E, S, F)
     onpath = torch.ones(act.shape + (1,), dtype=torch.float32,
@@ -490,10 +518,10 @@ def _solve_fleet_rates(params: SimParams, table: ScheduleTable, threads,
     if objectives is not None:
         floor = objectives.rate_floor.contiguous()
         cap = objectives.rate_cap.contiguous()
-    return contention_rates(threads.contiguous(), act, onpath,
-                            tpt[:, :, None].contiguous(),
-                            bw[:, :, None].contiguous(), floor, cap,
-                            rounds=0)
+    return flow_rows(contention_rates(threads.contiguous(), act, onpath,
+                                      tpt[:, :, None].contiguous(),
+                                      bw[:, :, None].contiguous(), floor,
+                                      cap, rounds=0), 2)
 
 
 def _integrate_fleet_rates(params: SimParams, buffers, rates):
@@ -537,6 +565,7 @@ def _sparse_fleet_interval(params: SimParams, table, buffers, threads, t0,
     return new_buffers, tps
 
 
+@flow_sharded((-2, -2))
 def fleet_interval(params: SimParams, buffers, threads, t0, *,
                    flows: FlowSchedule, table=None, substeps=50,
                    objectives: FlowObjective = None, max_active: int = None):
@@ -588,6 +617,7 @@ def _sparse_fleet_observe(params: SimParams, state: FleetState, *, flows,
     return _scatter(base, idx, obs_c)
 
 
+@flow_sharded(-2)
 def fleet_observe(params: SimParams, state: FleetState, *,
                   flows: FlowSchedule, table=None,
                   spec: ObservationSpec = DEFAULT_OBS,
@@ -622,12 +652,14 @@ def fleet_observe(params: SimParams, state: FleetState, *,
         ], dim=-1)
         parts += [delta, drain]
     if spec.fleet:
-        denom = F if _n_total is None else _n_total
+        denom = global_flows(F) if _n_total is None else _n_total
         act = active_at(flows, state.t)                         # (E, F)
         net = tps[..., 1] * act
-        agg = net.sum(dim=-1, keepdim=True)                     # (E, 1)
+        n_act, agg = flow_all_reduce(torch.cat([
+            act.sum(dim=-1, keepdim=True),
+            net.sum(dim=-1, keepdim=True)], dim=-1)).split(1, dim=-1)
         parts.append(torch.stack([
-            (act.sum(dim=-1, keepdim=True) / denom).expand(E, F),
+            (n_act / denom).expand(E, F),
             (agg / bw_ref[:, None]).expand(E, F),
             net / torch.clamp_min(agg, 1e-9),
         ], dim=-1))
@@ -649,11 +681,15 @@ def jain_index(x, active=None, weights=None):
         x = x / weights
     if active is not None:
         x = x * active
-        n = torch.clamp_min(active.sum(dim=-1), 1.0)
-    else:
-        n = float(x.shape[-1])
-    s = x.sum(dim=-1)
-    s2 = (x * x).sum(dim=-1)
+        s, s2, n = flow_all_reduce(torch.stack([
+            x.sum(dim=-1), (x * x).sum(dim=-1), active.sum(dim=-1)]))
+        return _jain(s, s2, torch.clamp_min(n, 1.0))
+    s, s2 = flow_all_reduce(torch.stack([x.sum(dim=-1), (x * x).sum(dim=-1)]))
+    return _jain(s, s2, float(global_flows(x.shape[-1])))
+
+
+def _jain(s, s2, n):
+    """Jain's index from the flow sums of x and x^2 and the count n."""
     return torch.where(s2 > 0, s * s / (n * s2), torch.ones_like(s))
 
 
@@ -677,11 +713,13 @@ def _fleet_reward(params: SimParams, tps, threads, act,
         deadline_penalty(tps[..., 2], need, scale=bw_ref[:, None]) * act,
         0.0)
     u = utility(tps, threads, k=params.k)                       # (E, F)
-    return (u.sum(dim=-1)
-            + ((objs.weight - 1.0) * u).sum(dim=-1)
-            - deadline_coef * (objs.weight * penalty).sum(dim=-1)
-            + fairness_coef * jain_index(tps[..., 2], act,
-                                         weights=objs.weight))
+    fair = tps[..., 2] / objs.weight * act     # jain_index's x, one sum
+    u_sum, wu_sum, pen_sum, s, s2, n_act = flow_all_reduce(torch.stack([
+        u.sum(dim=-1), ((objs.weight - 1.0) * u).sum(dim=-1),
+        (objs.weight * penalty).sum(dim=-1), fair.sum(dim=-1),
+        (fair * fair).sum(dim=-1), act.sum(dim=-1)]))
+    return (u_sum + wu_sum - deadline_coef * pen_sum
+            + fairness_coef * _jain(s, s2, torch.clamp_min(n_act, 1.0)))
 
 
 # ---------------------------------------------------------------------------
@@ -689,6 +727,7 @@ def _fleet_reward(params: SimParams, tps, threads, act,
 # ---------------------------------------------------------------------------
 
 
+@flow_sharded(STATE_DIMS)
 def fleet_reset(params: SimParams, n_envs: int, n_flows: int, t0=0.0, *,
                 flows: FlowSchedule = None, table=None, substeps=50,
                 objectives: FlowObjective = None, max_active: int = None,
@@ -696,15 +735,19 @@ def fleet_reset(params: SimParams, n_envs: int, n_flows: int, t0=0.0, *,
     """Random initial threads per flow in [1, 16), empty buffers, one
     warm-up interval under contention for consistent observations.
     ``t0``: a scalar or (E,). ``threads``: optional (E, F, 3) in place of
-    the draw from ``generator``. ``delivered`` starts at zero."""
+    the draw from ``generator``. ``delivered`` starts at zero. In a flow
+    scope ``n_flows`` is the whole fleet's: the threads are drawn at full F
+    and the rank keeps its rows."""
     device = params.tpt.device
+    n_local = local_flows(n_flows)
     if flows is None:
-        flows = _always_on_batch(n_envs, n_flows, device)
+        flows = _always_on_batch(n_envs, n_local, device)
     if threads is None:
-        threads = torch.randint(1, 16, (n_envs, n_flows, 3),
-                                generator=generator, device=device)
+        threads = flow_rows(torch.randint(1, 16, (n_envs, n_flows, 3),
+                                          generator=generator,
+                                          device=device), 1)
     threads = threads.to(device=device, dtype=torch.float32)
-    buffers = torch.zeros((n_envs, n_flows, 2), dtype=torch.float32,
+    buffers = torch.zeros((n_envs, n_local, 2), dtype=torch.float32,
                           device=device)
     t0 = as_f32(t0, device).expand(n_envs)
     buffers, tps = fleet_interval(params, buffers, threads, t0, flows=flows,
@@ -713,11 +756,12 @@ def fleet_reset(params: SimParams, n_envs: int, n_flows: int, t0=0.0, *,
                                   max_active=max_active)
     return FleetState(buffers=buffers, threads=threads, throughputs=tps,
                       t=t0 + params.duration, prev_throughputs=tps,
-                      delivered=torch.zeros((n_envs, n_flows),
+                      delivered=torch.zeros((n_envs, n_local),
                                             dtype=torch.float32,
                                             device=device))
 
 
+@flow_sharded((STATE_DIMS, -2, None))
 def fleet_step(params: SimParams, state: FleetState, actions, *,
                flows: FlowSchedule = None, table=None, substeps=50,
                spec: ObservationSpec = DEFAULT_OBS, fairness_coef=0.0,
@@ -775,6 +819,7 @@ def fleet_step(params: SimParams, state: FleetState, actions, *,
     return new_state, obs, reward
 
 
+@flow_sharded(None)
 def fleet_achievable(params: SimParams, table, flows: FlowSchedule, t):
     """(E,) best aggregate end-to-end rate the ACTIVE fleet of each env
     could sustain at sim time ``t`` (E,): the slowest stage's scheduled
@@ -782,5 +827,6 @@ def fleet_achievable(params: SimParams, table, flows: FlowSchedule, t):
     no flow is active)."""
     tab = _table_or_params(params, table, flows.t_start.shape[0])
     tpt, bw = schedule_at(tab, t)                               # (E, 3)
-    n_act = active_at(flows, t).sum(dim=-1, keepdim=True)       # (E, 1)
+    n_act = flow_all_reduce(active_at(flows, t).sum(dim=-1,
+                                                    keepdim=True))  # (E, 1)
     return torch.minimum(n_act * params.n_max * tpt, bw).amin(dim=-1)

@@ -31,8 +31,16 @@ The rollout steps all ``cfg.n_envs`` envs (and all their flows) as one
 batch: one env step of the whole batch is one launch of the simulator
 kernel, plus one of the contention kernel in fleet and topology mode.
 ``cfg.policy`` selects the temporal policy ("mlp" | "stacked"
-frame-stacking | "gru" recurrent carry). Meshes belong to a later slice of
-the port and raise NotImplementedError.
+frame-stacking | "gru" recurrent carry).
+
+``train_ppo(mesh=)`` splits every round's flows, objectives and routes over
+the mesh's "flows" axis (``repro_torch.sharding.fleet``). Each rank then
+steps its own flows: the random draws are made at full F from the one
+generator and each rank keeps its rows, so they equal the unsharded run's;
+the fleet's reductions, the loss's means and the gradients are summed over
+the ranks (``flow_all_reduce``); the parameters and AdamW state are
+replicated, so every rank makes the same update, keeps the same best
+params and returns the same result.
 
 Random draws (initial threads, episode start times, action noise) come from
 one ``torch.Generator`` on the device; the rollout also takes them as
@@ -62,6 +70,11 @@ from repro_torch.core.simulator import (env_reset, env_step, observe, ACT_DIM,
 from repro_torch.core.workload import Workload
 from repro_torch.device import resolve_device
 from repro_torch.optim import adamw_init, adamw_update
+from repro_torch.sharding.fleet import (current, flow_all_reduce, flow_rows,
+                                        flow_scope, local_flows, scope_of,
+                                        shard_flow_objectives,
+                                        shard_flow_schedule, shard_path_spec,
+                                        to_local)
 
 POLICIES = ("mlp", "stacked", "gru")
 
@@ -260,7 +273,9 @@ def _rollout_flows(policy_net, env_params, world, horizon, env_fns, flows,
 
     Draws from ``generator`` unless given explicitly: ``threads0``
     (E, F, 3), ``t0_draw`` (E,) and ``noise`` (M, E, F, 3). Returns (obs
-    (E, M, F, D), action (E, M, F, 3), reward (E, M), logp (E, M, F))."""
+    (E, M, F, D), action (E, M, F, 3), reward (E, M), logp (E, M, F)). In a
+    flow scope the draws are at full F and the outputs hold the rank's
+    flows; the reward is the whole fleet's."""
     reset_fn, observe_fn, step_fn = env_fns
     device = env_params.tpt.device
     if randomize_t0:
@@ -274,12 +289,13 @@ def _rollout_flows(policy_net, env_params, world, horizon, env_fns, flows,
     state = reset_fn(env_params, n_envs, n_flows, t0, flows=flows,
                      substeps=substeps, objectives=objectives,
                      max_active=max_active, generator=generator,
-                     threads=threads0, **world)
+                     threads=flow_rows(threads0, 1), **world)
     hist = history_init(spec, observe_fn(
         env_params, state, flows=flows, spec=fspec, objectives=objectives,
         max_active=max_active, **world))                  # (E, F, K, D)
     recurrent = policy == "gru"
-    h = nets.rnn_carry(policy_net, (n_envs, n_flows)) if recurrent else None
+    h = (nets.rnn_carry(policy_net, (n_envs, local_flows(n_flows)))
+         if recurrent else None)
     traj = []
     for m in range(M):
         obs = history_flatten(hist)
@@ -287,8 +303,9 @@ def _rollout_flows(policy_net, env_params, world, horizon, env_fns, flows,
             h, mean, std = policy_net(h, obs)
         else:
             mean, std = policy_net(obs)
-        eps = (noise[m] if noise is not None else
-               torch.randn(mean.shape, generator=generator, device=device))
+        eps = flow_rows(noise[m] if noise is not None else torch.randn(
+            (n_envs, n_flows) + mean.shape[2:], generator=generator,
+            device=device), 1)
         action = mean + std * eps
         logp = nets.gaussian_logp(mean, std, action)
         state, obs_next, reward = step_fn(
@@ -329,16 +346,32 @@ def _gae_returns(rew, values, gamma, lam):
 def _surrogate(logp, logp_old, v, ret, entropy, cfg: PPOConfig):
     """Clipped PPO surrogate shared by the feed-forward and recurrent
     losses. The advantage is normalized by the POPULATION std, as
-    ``jnp.std``."""
+    ``jnp.std``. In a flow scope the advantage's mean and std are the whole
+    batch's, and each mean is this rank's share of the global one (its sum
+    over the global count), so the ranks' gradients sum to the global
+    loss's."""
+    shard = current()
+    if shard is None:
+        mean = torch.mean
+    else:
+        n = ret.numel() * shard.size
+
+        def mean(x):
+            return x.sum() / n
     adv = ret - v.detach()
     if cfg.normalize_adv:
-        adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+        if shard is None:
+            adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+        else:
+            mu = flow_all_reduce(adv.sum()) / n
+            var = flow_all_reduce(((adv - mu) ** 2).sum()) / n
+            adv = (adv - mu) / (torch.sqrt(var) + 1e-8)
     ratio = torch.exp(logp - logp_old)
     surr1 = ratio * adv
     surr2 = torch.clamp(ratio, 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps) * adv
-    actor = -torch.minimum(surr1, surr2).mean()
-    critic = cfg.critic_coef * torch.mean((ret - v) ** 2)
-    entropy = entropy.mean()
+    actor = -mean(torch.minimum(surr1, surr2))
+    critic = cfg.critic_coef * mean((ret - v) ** 2)
+    entropy = mean(entropy)
     total = actor + critic - cfg.entropy_coef * entropy
     return total, {"actor": actor, "critic": critic, "entropy": entropy}
 
@@ -394,10 +427,15 @@ def _per_flow_sequences(x):
 def _ppo_epoch(params, batch, opt, cfg: PPOConfig, loss_fn=_loss):
     """One PPO epoch on ``batch``: the loss's gradients and one AdamW step,
     computed functionally and copied into ``params`` in place. Returns
-    (opt, loss, {name: gradient})."""
+    (opt, loss, {name: gradient}). In a flow scope the gradients (and the
+    loss) are summed over the ranks before the update, so the clip norm is
+    the global one."""
     named = _named(params)
     loss, _ = loss_fn(params, batch, cfg)
-    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    grads = torch.autograd.grad(loss, list(named.values()))
+    if current() is not None:
+        *grads, loss = flow_all_reduce(*grads, loss.detach())
+    grads = dict(zip(named, grads))
     new, opt, _ = adamw_update({n: p.detach() for n, p in named.items()},
                                grads, opt, lr=cfg.lr, weight_decay=0.0,
                                max_grad_norm=cfg.max_grad_norm)
@@ -417,7 +455,11 @@ def _make_episode_fn(env_params, cfg: PPOConfig, *, randomize_t0):
     own baseline, and the recurrent replay treats each (env, flow) pair as
     one carry sequence. The train state's modules are updated in place:
     AdamW computes the new values functionally and they are copied into
-    the parameters, so the modules' identity survives the update."""
+    the parameters, so the modules' identity survives the update.
+
+    Flows, objectives and routes with DTensor leaves split over a mesh's
+    "flows" axis (``train_ppo(mesh=)``) run the episode in their flow
+    scope: explicit ``threads0`` and ``noise`` are given at full F."""
     spec = effective_obs_spec(cfg)
     recurrent = cfg.policy == "gru"
     loss_fn = _loss_recurrent if recurrent else _loss
@@ -425,6 +467,13 @@ def _make_episode_fn(env_params, cfg: PPOConfig, *, randomize_t0):
     def episode(train_state, tables, generator=None, *, flows=None,
                 objectives=None, topology=None, threads0=None, t0_draw=None,
                 noise=None):
+        world = (flows, objectives, topology)
+        with flow_scope(scope_of(world)):
+            return _episode(train_state, tables, generator, *to_local(world),
+                            threads0, t0_draw, noise)
+
+    def _episode(train_state, tables, generator, flows, objectives, topology,
+                 threads0, t0_draw, noise):
         params, opt = train_state["params"], train_state["opt"]
         fleet = cfg.n_flows > 1 or topology is not None   # a flow axis
         if fleet:
@@ -502,13 +551,17 @@ def train_ppo(env_params, cfg: PPOConfig = None, *, workload=None,
     its tables, flows and graphs each round, before any padding
     (``Workload.compiled()``). ``cfg.pad_flows`` pads the fleet (and every
     round's flows, objectives and routes) to ``flow_bucket(cfg.n_flows)``
-    never-active, pathless flows."""
+    never-active, pathless flows. ``mesh``: optional DeviceMesh with a
+    "flows" axis (``repro_torch.launch.mesh.make_fleet_mesh``): every
+    round's flows, objectives and routes are split over it
+    (``repro_torch.sharding.fleet``) and each rank steps its own flows;
+    every rank of the mesh calls ``train_ppo`` alike and gets the same
+    result. Combine with ``cfg.pad_flows`` so F divides the mesh: an F that
+    does not, or a mesh of one rank, runs replicated, bit for bit the
+    unsharded program."""
     cfg = cfg or PPOConfig()
     if cfg.pad_flows and cfg.n_flows > 1:
         cfg = dc_replace(cfg, n_flows=flow_bucket(cfg.n_flows))
-    if mesh is not None:
-        raise NotImplementedError("train_ppo(mesh=) lands with the "
-                                  "multi-GPU fleet slice of the port")
     device = resolve_device(cfg.device)
     if env_params.tpt.device.type != device.type:
         raise ValueError(f"env params live on {env_params.tpt.device}, "
@@ -552,6 +605,13 @@ def train_ppo(env_params, cfg: PPOConfig = None, *, workload=None,
                 if topology is not None:
                     topology = Topology(topology.graph, pad_path_spec(
                         topology.paths, cfg.n_flows))
+        if mesh is not None:
+            if flows is not None:
+                flows = shard_flow_schedule(flows, mesh)
+            objectives = shard_flow_objectives(objectives, mesh)
+            if topology is not None:
+                topology = Topology(topology.graph, shard_path_spec(
+                    topology.paths, mesh))
         train_state, ep_rewards, loss = episode_fn(
             train_state, run.tables, gen, flows=flows, objectives=objectives,
             topology=topology)

@@ -43,6 +43,11 @@ A flows instead of F). ``_sorted_water_fill`` is the rounds' closed-form
 fixed point, the oracle K3's water-fill is held to where the plain round
 loop is slow (``contention_rates_reference(..., fill=_sorted_water_fill)``);
 no path runs it.
+
+Sharded topologies run as sharded fleets do (``core.fleet``,
+``repro_torch.sharding.fleet``): the routing matrix's flow axis is split
+with the flows, the per-link loads of the observation are one
+``all_reduce``, and K3 solves the assembled full-F operands on every rank.
 """
 
 from __future__ import annotations
@@ -57,11 +62,13 @@ from repro_torch.core.fleet import (FleetState, FlowSchedule, FlowObjective,
                                     _integrate_fleet_rates, _fleet_reward,
                                     fleet_observe, _window_flow_ids, _take,
                                     _scatter, _gather_compact,
-                                    _sparse_fleet_observe)
+                                    _sparse_fleet_observe, _full_operands)
 from repro_torch.core.simulator import (SimParams, ObservationSpec,
                                         DEFAULT_OBS)
 from repro_torch.device import as_f32, resolve_device
 from repro_torch.kernels.contention.ops import contention_rates
+from repro_torch.sharding.fleet import (STATE_DIMS, flow_all_reduce,
+                                        flow_rows, flow_sharded, local_flows)
 
 INF = float("inf")
 
@@ -281,7 +288,12 @@ def _solve_topology_rates(params: SimParams, graph: LinkGraph,
     """(E, S, F, 3) per-flow rates over the link graphs through K3: the
     schedule, activity and route gathers here, then the per-link split,
     the F water-fill rounds and the min over each flow's links of every
-    env and substep in one launch (F is A on the compact path)."""
+    env and substep in one launch (F is A on the compact path). In a flow
+    scope the operands are assembled to full F and the rank's rows of the
+    rates kept."""
+    threads, flows, objectives, onpath = _full_operands(
+        threads, flows, objectives, (paths.onpath, -2))
+    paths = PathSpec(onpath=onpath, bin_seconds=paths.bin_seconds)
     ts, tpt, bw = _link_conditions(params, graph, t0, substeps)
     act = active_at(flows, ts)                                  # (E, S, F)
     onpath = routes_at(paths, ts)                               # (E, S, F, L)
@@ -289,10 +301,10 @@ def _solve_topology_rates(params: SimParams, graph: LinkGraph,
     if objectives is not None:
         floor = objectives.rate_floor.contiguous()
         cap = objectives.rate_cap.contiguous()
-    return contention_rates(threads.contiguous(), act.contiguous(),
-                            onpath.contiguous(), tpt.contiguous(),
-                            bw.contiguous(), floor, cap,
-                            rounds=threads.shape[1])
+    return flow_rows(contention_rates(threads.contiguous(), act.contiguous(),
+                                      onpath.contiguous(), tpt.contiguous(),
+                                      bw.contiguous(), floor, cap,
+                                      rounds=threads.shape[1]), 2)
 
 
 def _sparse_topology_interval(params: SimParams, graph: LinkGraph,
@@ -331,6 +343,7 @@ def _sparse_topology_interval(params: SimParams, graph: LinkGraph,
     return new_buffers, tps
 
 
+@flow_sharded((-2, -2))
 def topology_interval(params: SimParams, buffers, threads, t0, *,
                       graph: LinkGraph, paths: PathSpec, flows: FlowSchedule,
                       substeps=50, objectives: FlowObjective = None,
@@ -368,10 +381,11 @@ def topology_features(onpath, net_tps, active, link_bw_ref):
     ``onpath`` (..., F, L) routing now; ``net_tps`` (..., F) network-stage
     throughputs; ``active`` (..., F) 0/1; ``link_bw_ref`` (..., L) per-link
     bandwidth reference (sim: per-link schedule peak; live: the provisioned
-    link capacities in engine units)."""
+    link capacities in engine units). In a flow scope the per-link loads
+    are summed over the whole fleet."""
     onpath = as_f32(onpath)
     net = as_f32(net_tps, onpath.device) * as_f32(active, onpath.device)
-    agg = (onpath * net[..., None]).sum(dim=-2)                 # (..., L)
+    agg = flow_all_reduce((onpath * net[..., None]).sum(dim=-2))  # (..., L)
     util = agg / torch.clamp_min(as_f32(link_bw_ref, onpath.device), 1e-9)
     util_f = util[..., None, :].expand_as(onpath)               # (..., F, L)
     on_util = torch.where(onpath > 0, util_f,
@@ -419,6 +433,7 @@ def _sparse_topology_observe(params: SimParams, state: TopologyState, *,
     return torch.cat([base, _scatter(full, idx, topo)], dim=-1)
 
 
+@flow_sharded(-2)
 def topology_observe(params: SimParams, state: TopologyState, *,
                      flows: FlowSchedule, graph: LinkGraph, paths: PathSpec,
                      spec: ObservationSpec = DEFAULT_OBS,
@@ -444,6 +459,7 @@ def topology_observe(params: SimParams, state: TopologyState, *,
     return torch.cat([base, topo], dim=-1)
 
 
+@flow_sharded(STATE_DIMS)
 def topology_reset(params: SimParams, n_envs: int, n_flows: int, t0=0.0, *,
                    graph: LinkGraph, paths: PathSpec,
                    flows: FlowSchedule = None, substeps=50,
@@ -451,15 +467,18 @@ def topology_reset(params: SimParams, n_envs: int, n_flows: int, t0=0.0, *,
                    generator=None, threads=None):
     """The topology twin of ``fleet_reset``: random initial threads in
     [1, 16) (or ``threads`` (E, F, 3)), empty buffers, one warm-up interval
-    over the graphs. ``t0``: a scalar or (E,)."""
+    over the graphs. ``t0``: a scalar or (E,). In a flow scope ``n_flows``
+    is the whole fleet's, as in ``fleet_reset``."""
     device = params.tpt.device
+    n_local = local_flows(n_flows)
     if flows is None:
-        flows = _always_on_batch(n_envs, n_flows, device)
+        flows = _always_on_batch(n_envs, n_local, device)
     if threads is None:
-        threads = torch.randint(1, 16, (n_envs, n_flows, 3),
-                                generator=generator, device=device)
+        threads = flow_rows(torch.randint(1, 16, (n_envs, n_flows, 3),
+                                          generator=generator,
+                                          device=device), 1)
     threads = threads.to(device=device, dtype=torch.float32)
-    buffers = torch.zeros((n_envs, n_flows, 2), dtype=torch.float32,
+    buffers = torch.zeros((n_envs, n_local, 2), dtype=torch.float32,
                           device=device)
     t0 = as_f32(t0, device).expand(n_envs)
     buffers, tps = topology_interval(params, buffers, threads, t0,
@@ -468,11 +487,12 @@ def topology_reset(params: SimParams, n_envs: int, n_flows: int, t0=0.0, *,
                                      max_active=max_active)
     return TopologyState(buffers=buffers, threads=threads, throughputs=tps,
                          t=t0 + params.duration, prev_throughputs=tps,
-                         delivered=torch.zeros((n_envs, n_flows),
+                         delivered=torch.zeros((n_envs, n_local),
                                                dtype=torch.float32,
                                                device=device))
 
 
+@flow_sharded((STATE_DIMS, -2, None))
 def topology_step(params: SimParams, state: TopologyState, actions, *,
                   graph: LinkGraph, paths: PathSpec,
                   flows: FlowSchedule = None, substeps=50,
@@ -531,6 +551,7 @@ def topology_step(params: SimParams, state: TopologyState, actions, *,
     return new_state, obs, reward
 
 
+@flow_sharded(None)
 def topology_achievable(params: SimParams, graph: LinkGraph, paths: PathSpec,
                         flows: FlowSchedule, t,
                         objectives: FlowObjective = None):
@@ -544,4 +565,4 @@ def topology_achievable(params: SimParams, graph: LinkGraph, paths: PathSpec,
     threads = params.n_max.expand(E, F, 3)
     rates = _solve_topology_rates(params, graph, paths, threads, flows, t, 1,
                                   objectives)                    # (E, 1, F, 3)
-    return rates[:, 0].amin(dim=-1).sum(dim=-1)
+    return flow_all_reduce(rates[:, 0].amin(dim=-1).sum(dim=-1))

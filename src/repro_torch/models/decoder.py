@@ -58,7 +58,7 @@ def _check_supported(cfg):
         raise _unported(f"the {cfg.family!r} family")
     if cfg.use_mla:
         mla.check_backend(cfg, cfg.attn_backend)
-    if cfg.rope not in ("standard", "partial", "mrope"):
+    if cfg.rope not in ("standard", "partial", "mrope", "none"):
         raise _unported(f"rope {cfg.rope!r}")
     if cfg.mlp not in ("swiglu", "gelu"):
         raise _unported(f"the {cfg.mlp!r} MLP")
@@ -69,8 +69,11 @@ def _check_supported(cfg):
 # ---------------------------------------------------------------------------
 
 def _rope_fn_decode(cfg):
-    """Rope closure for decode: (q, k, pos (B, 1)) -> (q, k). M-RoPE gives
-    the cache position to all three sections, as the reference does."""
+    """Rope closure for decode: (q, k, pos (B, 1)) -> (q, k), or None for
+    ``rope="none"``. M-RoPE gives the cache position to all three sections,
+    as the reference does."""
+    if cfg.rope == "none":
+        return None
     if cfg.rope == "partial":
         return lambda q, k, pos: apply_partial_rope(
             q, k, pos, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
@@ -82,8 +85,10 @@ def _rope_fn_decode(cfg):
 
 
 def _rope_fn(cfg, positions):
-    """Rope closure for full-sequence attention. positions: (B, S), or
-    (3, B, S) for M-RoPE."""
+    """Rope closure for full-sequence attention, or None for
+    ``rope="none"``. positions: (B, S), or (3, B, S) for M-RoPE."""
+    if cfg.rope == "none":
+        return None
     if cfg.rope == "mrope":
         return lambda q, k: apply_mrope(q, k, positions,
                                         sections=cfg.mrope_sections,

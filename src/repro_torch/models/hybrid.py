@@ -22,6 +22,12 @@ through the plain chunked scan and the shared block through
 are forward-only, so a loss under ``attn_backend="pallas"`` raises), then
 the decoder's cross entropy; ``cfg.remat`` checkpoints each Mamba2 block
 and each shared-block invocation.
+
+``cfg.ssd_bf16`` reaches the hybrid only through the ssm model's blocks,
+as in the reference: the loss's Mamba2 layers take the bf16 intra-chunk
+scan, and the prefill runs K5 whatever the flag says (``models.ssm``), so
+its output equals the output with the flag off bit for bit. With
+``rope="none"`` the shared block's attention runs without rope.
 """
 
 from __future__ import annotations
@@ -45,9 +51,7 @@ from repro_torch.nn import ssd
 def _check_supported(cfg):
     if cfg.family != "hybrid":
         raise _unported(f"the {cfg.family!r} family in the hybrid model")
-    if cfg.ssd_bf16:
-        raise _unported("ssd_bf16")
-    if cfg.rope not in ("standard", "partial"):
+    if cfg.rope not in ("standard", "partial", "none"):
         raise _unported(f"rope {cfg.rope!r}")
 
 

@@ -5,5 +5,6 @@ from repro_torch.runtime.ft import (
     FaultTolerantTrainer,
     WorkerFailure,
 )
+from repro_torch.runtime.elastic import reshard_state, elastic_mesh
 from repro_torch.runtime.compress import (make_int8_compressor,
                                          int8_roundtrip_error)

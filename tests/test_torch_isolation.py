@@ -49,7 +49,8 @@ COPIES = {"transfer/engine.py": "transfer/engine.py",
           "core/simref.py": "core/simref.py",
           "scenarios/driver.py": "scenarios/driver.py",
           "core/online.py": "core/online.py",
-          "data/pipeline.py": "data/pipeline.py"}
+          "data/pipeline.py": "data/pipeline.py",
+          "sharding/context.py": "sharding/context.py"}
 # narrowed copies: the top-level names (or "Class.method") whose definitions
 # may differ from the original's (the registry's refusal is checked by
 # test_registry_narrows_the_reference_registry; the pipeline's next_batch
@@ -76,6 +77,8 @@ def test_import_with_jax_blocked_loads_no_reference_module():
         "             or k.startswith('jax.'))\n"
         "assert not bad, bad\n"
         "assert len(names) >= 20, names\n"
+        "assert {'repro_torch.sharding', 'repro_torch.launch.mesh',\n"
+        "        'repro_torch.runtime.elastic'} <= set(sys.modules), names\n"
         "print('ok', len(names))\n")
     env = {**os.environ, "PYTHONPATH": str(SRC)}
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -193,3 +193,30 @@ def test_gelu_mlp(use_bias):
         got = mlp(torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-5)
+
+
+def test_rope_none_prefill_decode_and_loss_match(float32_kv_caches):
+    """``rope="none"`` raised until the sharding slice; the rope closures
+    now return None, as the reference's ``_rope_fn`` and
+    ``_rope_fn_decode`` do, and the SMOKE deepseek-7b without rope matches
+    the reference: prefill and decode logits within 1e-4, the greedy
+    tokens equal, and the loss (under 'full': K4 is forward-only) within
+    1e-5 relative."""
+    from repro_torch.models import decoder
+    jm, jparams, m, params, tokens = _setup("deepseek-7b", rope="none")
+    assert decoder._rope_fn(m.cfg, torch.zeros(B, S)) is None
+    assert decoder._rope_fn_decode(m.cfg) is None
+    logits, jtoks, ttoks, _ = _generate(jm, jparams, m, params, tokens)
+    for jlog, tlog in logits:
+        np.testing.assert_allclose(tlog, jlog, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(ttoks, jtoks)
+    row = np.random.default_rng(6).integers(0, m.cfg.vocab, (B, S + 1),
+                                            dtype=np.int32)
+    batch = {"tokens": row[:, :-1].copy(), "labels": row[:, 1:].copy()}
+    with torch.no_grad():
+        loss, _ = get_model(m.cfg.replace(attn_backend="full")).loss_fn(
+            params, {k: torch.from_numpy(v) for k, v in batch.items()})
+    j_loss, _ = jax.jit(j_get_model(j_smoke("deepseek-7b").replace(
+        rope="none")).loss_fn)(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(loss), float(j_loss), rtol=1e-5)

@@ -189,10 +189,28 @@ def test_returns_match_reference():
 
 
 def test_unported_regimes_refuse():
+    """``train_ppo(mesh=)`` raised NotImplementedError until the sharding
+    slice of the port; a one-rank fleet mesh now runs one round equal to
+    ``mesh=None`` bit for bit (every flow sharding on one rank is a
+    replication)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_fleet_mesh
     tenv = tsim.make_env_params(tpt=TPT, bw=BW, cap=CAP, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tppo.train_ppo(tenv, tppo.PPOConfig(n_flows=4, device="cpu"),
-                       mesh=object())
+    cfg = tppo.PPOConfig(n_flows=4, n_envs=2, max_episodes=2, max_steps=3,
+                         device="cpu")
+    started = not dist.is_initialized()
+    try:
+        res = tppo.train_ppo(tenv, cfg,
+                             mesh=make_fleet_mesh(1, device="cpu"))
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+    alone = tppo.train_ppo(tenv, cfg)
+    assert res.episodes == alone.episodes == 2
+    assert res.history == alone.history
+    for (n, p), q in zip(res.params.named_parameters(),
+                         alone.params.parameters()):
+        assert torch.equal(p, q), n
     # the fleet, topology and fault axes are ported: such a workload is
     # accepted
     wl = tppo.Workload(flows=object(), objectives=object(),
