@@ -192,6 +192,19 @@ port's entry points:
                 one episode batch (16 envs x 4 flows) within 1e-4 of
                 mesh=None; per rank the round wall ms, K1 and K3 launches
                 and flow_all_reduce calls and bytes per step and per round
+ 27. dry run    repro_torch.launch.dryrun's CLI in a subprocess per cell
+                (started together) on smollm-135m and mixtral-8x22b at
+                train_4k, full width, on both production meshes (a fake
+                world of 256 and 512 ranks, meta DTensors): every cell
+                ok, each line as the reference's CLI prints it; then
+                phase 23's step (smollm-135m, 8 x 1024 tokens) traced on
+                a 1 x 1 mesh and run on the card: the traced state bytes
+                against the bytes init_state's tensors requested of the
+                allocator (512 a tensor), analyze_ops' FLOPs of the real
+                step equal
+                to the trace's, the step's median against its roofline
+                bound (never below it), the traced peak beside
+                max_memory_allocated; no kernel runs
 
 It prints each phase's wall time, its findings on earlier lines, one JSON
 line with every kernel's numbers, the nvidia-smi line, and ends with the
@@ -556,6 +569,19 @@ SHARD_FLOOR_FLOWS = 8        # the reference's floors-and-caps world
 # 467-473) and PERF.md section 2's for one episode batch
 SHARD_TOL = {"state": 1e-6, "reward": 1e-5, "episode": 1e-4}
 SHARD_TIMEOUT_S = 300        # the spawned ranks' join limit
+# phase 27: the dry run. (a) the CLI on DRYRUN_CELLS at full width on
+# both production meshes (256 and 512 ranks of a fake world, meta
+# DTensors), a subprocess per cell, all started together, within
+# DRYRUN_CLI_TIMEOUT_S; (b) on the card, phase
+# 23's step (smollm-135m, 8 x 1024 tokens, remat, 'chunked') traced on a
+# 1 x 1 mesh and run for real: the state's bytes against the bytes the
+# allocator's tensors requested (within DRYRUN_ALLOC_ROUND a tensor), the
+# FLOPs of the real step against the trace's, the step's median over
+# DRYRUN_STEPS steps after a warm-up against its roofline bound
+DRYRUN_CELLS = (("smollm-135m", "train_4k"), ("mixtral-8x22b", "train_4k"))
+DRYRUN_CLI_TIMEOUT_S = 400
+DRYRUN_ALLOC_ROUND = 512
+DRYRUN_STEPS = 5
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
@@ -4567,6 +4593,151 @@ def phase_sharding(torch, card):
     return out
 
 
+def phase_dryrun(torch, card):
+    """Phase 27: the dry run (``repro_torch.launch.dryrun``). (a) Its CLI
+    on DRYRUN_CELLS, one subprocess per cell, both meshes: every cell
+    ``ok``, each line printed as the reference's CLI prints it. (b) Phase
+    23's step on the card against its trace on a 1 x 1 mesh. No kernel
+    runs: the dry run traces 'chunked'."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch.mesh import mesh_over
+    from repro_torch.launch.steps import init_state, make_train_step
+
+    reset_launches()
+    out_dir = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    t0 = time.monotonic()
+    runs = [(arch, shape, mesh) for arch, shape in DRYRUN_CELLS
+            for mesh in ("single", "multi")]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--multi-pod", mesh, "--out-dir", out_dir],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for arch, shape, mesh in runs]
+    cells = {}
+    for p, (arch, shape, mesh) in zip(procs, runs):
+        try:
+            stdout, stderr = p.communicate(
+                timeout=max(1.0, DRYRUN_CLI_TIMEOUT_S
+                            - (time.monotonic() - t0)))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+                q.communicate()
+            fail(f"the dry-run CLI took over {DRYRUN_CLI_TIMEOUT_S} s")
+        for line in stdout.splitlines():
+            if line.startswith("[dryrun]"):
+                print(line)
+        if p.returncode:
+            fail(f"the dry-run CLI failed on {arch} {mesh}: "
+                 f"{stderr[-2000:]}")
+        with open(os.path.join(out_dir, f"{arch}__{shape}__{mesh}.json")) as f:
+            cells[(arch, mesh)] = json.load(f)
+    cli_s = time.monotonic() - t0
+    for (arch, mesh), r in cells.items():
+        print(f"[dryrun] {arch} {r['shape']} {mesh}: {r['chips']} ranks, "
+              f"traced in {r['lower_s']} s; per device {r['hlo_flops'] / r['chips']:.6g} "
+              f"FLOPs, {r['hlo_bytes'] / r['chips']:.6g} bytes, "
+              f"{r['collective_bytes'] / r['chips']:.6g} collective bytes "
+              f"{json.dumps(r['collective_counts'])}; state "
+              f"{r['state_bytes_per_device']:.6g} bytes a device, peak live "
+              f"{r['memory_analysis']['peak_live_bytes']}; roofline "
+              f"{r['roofline_step_s']:.6g} s ({r['dominant']}); H100 "
+              f"constants ({card})")
+        if r["status"] != "ok" or r["chips"] != (512 if mesh == "multi"
+                                                 else 256):
+            fail(f"the dry-run cell {arch} {mesh} is not ok: {r}")
+    print(f"[dryrun] CLI: {len(cells)} full-width cells in {cli_s:.2f} s")
+
+    # (b) phase 23's step: the trace on a 1 x 1 mesh, then the card
+    cfg = get_config(TRAIN_ARCH)
+    meta = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32,
+                           device="meta") for k in ("tokens", "labels")}
+    t0 = time.monotonic()
+    with dryrun.fake_world(1):
+        mesh = mesh_over((1, 1), ("data", "model"), device="cuda")
+        traced, state_bytes, fc_flops, mem, _ = dryrun.trace_step(
+            cfg, "train", meta, mesh)
+    trace_s = time.monotonic() - t0
+    bound = hlo_analysis.roofline_terms(
+        hlo_flops=traced.flops, hlo_bytes=traced.bytes_accessed,
+        coll_bytes=traced.collective_bytes, chips=1)
+
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def held():
+        """(bytes the tensors asked for, bytes of the blocks they got)."""
+        st = torch.cuda.memory_stats()
+        return (st["requested_bytes.all.current"],
+                st["allocated_bytes.all.current"])
+
+    before = held()
+    state = init_state(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    grown, blocks = (a - b for a, b in zip(held(), before))
+    n_leaves = 2 * len(state["params"]) + len(state["opt"]["m"]) + 1
+    print(f"[dryrun] ({card}) {TRAIN_ARCH} state: dry run "
+          f"{state_bytes:.0f} bytes a device; after init_state the card's "
+          f"allocator holds {grown} more bytes requested by {n_leaves} "
+          f"tensors, in {blocks} bytes of blocks (a block of the large "
+          f"pool is not split when under 1 MiB would remain)")
+    if abs(grown - state_bytes) > DRYRUN_ALLOC_ROUND * n_leaves:
+        fail(f"the state's bytes {state_bytes} are not the card's "
+             f"{grown} within {DRYRUN_ALLOC_ROUND} bytes a tensor")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                              generator=gen, device="cuda",
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    step = make_train_step(cfg)
+    real, _ = hlo_analysis.analyze_ops(step, state, batch)
+    torch.cuda.synchronize()
+    print(f"[dryrun] ({card}) FLOPs of the real step {real.flops:.0f} "
+          f"({real.dot_count} matmuls), of the meta trace "
+          f"{traced.flops:.0f} ({traced.dot_count}), FlopCounterMode "
+          f"{fc_flops}; bytes real {real.bytes_accessed:.0f}, traced "
+          f"{traced.bytes_accessed:.0f}; trace {trace_s:.2f} s")
+    if real.flops != traced.flops or fc_flops != traced.flops:
+        fail("the real step's FLOPs are not the meta trace's")
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(TRAIN_WARM_STEPS + DRYRUN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    step_s = float(np.median(times[TRAIN_WARM_STEPS:]))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[dryrun] ({card}) step median {step_s * 1e3:.3f} ms over "
+          f"{DRYRUN_STEPS} steps (each s {json.dumps(times)}); roofline "
+          f"{bound['roofline_step_s'] * 1e3:.3f} ms, dominant "
+          f"{bound['dominant']} (compute {bound['compute_s'] * 1e3:.3f} ms, "
+          f"memory {bound['memory_s'] * 1e3:.3f} ms); measured / bound "
+          f"{step_s / bound['roofline_step_s']:.3f}")
+    print(f"[dryrun] ({card}) peak memory: dry run "
+          f"{mem['peak_live_bytes']} bytes live, the card's "
+          f"max_memory_allocated {peak} bytes")
+    if step_s < bound["roofline_step_s"]:
+        fail("a measured step is faster than its roofline bound")
+    launches = read_launches()
+    if any(launches.values()):
+        fail(f"a kernel ran in the dry-run phase: {launches}")
+    del state
+    return {"cells": {f"{a}|{m}": {k: r[k] for k in (
+        "hlo_flops", "collective_bytes", "dominant", "roofline_step_s",
+        "lower_s")} for (a, m), r in cells.items()},
+        "cli_s": cli_s, "state_bytes": state_bytes, "grown": grown,
+        "flops": traced.flops, "step_ms": step_s * 1e3,
+        "bound_ms": bound["roofline_step_s"] * 1e3,
+        "peak_traced": mem["peak_live_bytes"], "peak_card": peak}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4838,6 +5009,9 @@ def main():
     # --- 26. sharding: flow-sharded fleets on a DeviceMesh, the LM meshes --
     sh = phase_sharding(torch, card)
     lap(26)
+    # --- 27. the dry run: meta DTensors on a fake world, then the card -----
+    dr = phase_dryrun(torch, card)
+    lap(27)
     print(f"[wall] per phase s {json.dumps(walls)}; total "
           f"{sum(walls.values()):.2f} s")
     print(f"[profiler] device_ms windows: {PROFILER_WINDOWS['calls']} "
@@ -4998,6 +5172,7 @@ def main():
         "n_layers", "n_params", "batch", "ms", "tokens_per_s",
         "max_memory_allocated", "losses") if k in r}
         for a, r in tl.items() if a in TRAIN_LAST}))
+    print("[dryrun] " + json.dumps(dr))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import copy
 import time
+import warnings
 from dataclasses import dataclass, replace as dc_replace
 
 import torch
@@ -523,15 +524,47 @@ def _make_episode_fn(env_params, cfg: PPOConfig, *, randomize_t0):
     return episode
 
 
-def _drawn(resample, rnd) -> Workload:
-    wl = resample(rnd)
-    if not isinstance(wl, Workload):
-        raise TypeError("resample(round) must return a Workload")
-    return wl
+_LEGACY_KWARG_PAIRS = ("tables", "flows/resample_flows",
+                       "objectives/resample_objectives",
+                       "topology/resample_topology",
+                       "faults/resample_faults")
+
+
+class _Rounds:
+    """Each round's Workload: ``resample`` (a Workload, or, deprecated,
+    bare tables) and then the deprecated per-axis resamplers, in the
+    reference's order and on its conditions (round 0 draws an axis only
+    where the given workload lacks it)."""
+
+    def __init__(self, resample, per_axis):
+        self.resample, self.per_axis = resample, per_axis
+        self.warned = False
+
+    def __call__(self, rnd, wl):
+        if self.resample is not None and (
+                rnd > 0 or (wl.tables is None and wl.topology is None)):
+            out = self.resample(rnd)
+            if isinstance(out, Workload):
+                wl = out
+            else:   # legacy fn(round) -> batched tables
+                if not self.warned:
+                    self.warned = True
+                    warnings.warn(
+                        "train_ppo(resample=...) returning bare tables is "
+                        "deprecated: return a repro_torch.core.Workload",
+                        DeprecationWarning, stacklevel=3)
+                wl = wl.replace(tables=out)
+        for name, fn in self.per_axis.items():
+            if fn is not None and (getattr(wl, name) is None or rnd > 0):
+                wl = wl.replace(**{name: fn(rnd)})
+        return wl
 
 
 def train_ppo(env_params, cfg: PPOConfig = None, *, workload=None,
-              resample=None, r_max=None, mesh=None):
+              resample=None, tables=None, flows=None, resample_flows=None,
+              objectives=None, resample_objectives=None, topology=None,
+              resample_topology=None, faults=None, resample_faults=None,
+              r_max=None, mesh=None, generator=None):
     """Algorithm 2, schedule-native. Returns TrainResult with the BEST (not
     last) params.
 
@@ -558,22 +591,54 @@ def train_ppo(env_params, cfg: PPOConfig = None, *, workload=None,
     every rank of the mesh calls ``train_ppo`` alike and gets the same
     result. Combine with ``cfg.pad_flows`` so F divides the mesh: an F that
     does not, or a mesh of one rank, runs replicated, bit for bit the
-    unsharded program."""
+    unsharded program. ``generator``: a ``torch.Generator`` on the env's
+    device, the counterpart of the reference's ``key``: the rollouts draw
+    from it and the initial weights from a CPU generator seeded with its
+    ``initial_seed()``; None is a generator seeded with ``cfg.seed``.
+
+    DEPRECATED, as in the reference (one cycle): the per-axis kwargs
+    ``tables``, ``flows``/``resample_flows``, ``objectives``/
+    ``resample_objectives``, ``topology``/``resample_topology`` and
+    ``faults``/``resample_faults``, and a ``resample`` that returns bare
+    tables, warn (DeprecationWarning) and fold into a Workload; they
+    cannot be combined with ``workload=``."""
     cfg = cfg or PPOConfig()
+    legacy = (tables, flows, objectives, topology, faults, resample_flows,
+              resample_objectives, resample_topology, resample_faults)
+    if any(v is not None for v in legacy):
+        warnings.warn(
+            "train_ppo's per-axis kwarg pairs "
+            f"({', '.join(_LEGACY_KWARG_PAIRS)}) are deprecated: bundle "
+            "the axes in a repro_torch.core.Workload and pass "
+            "train_ppo(workload=..., resample=fn(round) -> Workload).",
+            DeprecationWarning, stacklevel=2)
+        if workload is not None:
+            raise ValueError("pass workload= or the legacy per-axis "
+                             "kwargs, not both")
+        workload = Workload(tables=tables, flows=flows,
+                            objectives=objectives, topology=topology,
+                            faults=faults)
+    rounds = _Rounds(resample, {"flows": resample_flows,
+                                "objectives": resample_objectives,
+                                "topology": resample_topology,
+                                "faults": resample_faults})
     if cfg.pad_flows and cfg.n_flows > 1:
         cfg = dc_replace(cfg, n_flows=flow_bucket(cfg.n_flows))
     device = resolve_device(cfg.device)
     if env_params.tpt.device.type != device.type:
         raise ValueError(f"env params live on {env_params.tpt.device}, "
                          f"the config asks for {device}")
-    wl = workload if workload is not None else Workload()
-    drawn = wl.tables is not None or wl.topology is not None
-    if resample is not None and not drawn:
-        wl = _drawn(resample, 0)   # round 0's draw fixes the world
-    topo_mode = wl.topology is not None
-    gen = torch.Generator(device=env_params.tpt.device)
-    gen.manual_seed(cfg.seed)
-    train_state = init_agent(cfg)
+    if generator is None:
+        generator = torch.Generator(device=env_params.tpt.device)
+        generator.manual_seed(cfg.seed)
+    elif generator.device.type != env_params.tpt.device.type:
+        raise ValueError(f"the generator is on {generator.device}, the "
+                         f"env params on {env_params.tpt.device}")
+    gen = generator
+    wl = rounds(0, workload if workload is not None else Workload())
+    topo_mode = wl.topology is not None   # round 0's draw fixes the world
+    train_state = init_agent(cfg, torch.Generator().manual_seed(
+        gen.initial_seed()))
     scheduled = wl.tables is not None or resample is not None or topo_mode
     episode_fn = _make_episode_fn(env_params, cfg, randomize_t0=scheduled)
 
@@ -589,8 +654,8 @@ def train_ppo(env_params, cfg: PPOConfig = None, *, workload=None,
     by_batch_mean = cfg.param_selection == "batch_mean"
 
     while n_episodes < cfg.max_episodes:
-        if resample is not None and rnd > 0:
-            wl = _drawn(resample, rnd)
+        if rnd > 0:
+            wl = rounds(rnd, wl)
         rnd += 1
         run = wl.compiled()   # fault edits (no faults: wl itself)
         flows, objectives, topology = (run.flows, run.objectives,

@@ -33,6 +33,23 @@ class Workload:
     faults: Any = None      # list[FaultSpec | None], one per env
     specs: Any = field(default=None, repr=False)  # the scenario draws
 
+    # Deprecated tuple compatibility (the reference keeps it for one
+    # cycle): the samplers used to return positional tuples, fleet
+    # (specs, tables, flows, objectives) and topology (specs, topology,
+    # flows, objectives), so a Workload unpacks and indexes in that order,
+    # the topology in the tables' place when present. Faults stay out.
+    def __iter__(self):
+        yield self.specs
+        yield self.topology if self.topology is not None else self.tables
+        yield self.flows
+        yield self.objectives
+
+    def __len__(self):
+        return 4
+
+    def __getitem__(self, i):
+        return tuple(self)[i]
+
     def replace(self, **changes) -> "Workload":
         return replace(self, **changes)
 

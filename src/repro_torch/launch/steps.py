@@ -70,6 +70,7 @@ def make_train_step(cfg, *, peak_lr=3e-4, warmup_steps=100, total_steps=10000,
         out.update(om)
         return {"params": params, "opt": opt}, out
 
+    train_step.module = holder   # the structure the step binds into
     return train_step
 
 
@@ -88,17 +89,24 @@ def state_shape(cfg):
     return {"params": params, "opt": adamw_init(params)}
 
 
-def make_prefill_step(cfg):
+def make_prefill_step(cfg, *, ssd_fn=None):
+    """One prefill: (last-position logits, the cache). ``ssd_fn`` replaces
+    the SSD kernel K5 in the ssm and hybrid prefills (the dry run passes
+    the plain scan ``nn.ssd.ssd_chunked``, which the reference's prefill
+    runs and which traces on the meta device)."""
     model = get_model(cfg)
+    kw = {"ssd_fn": ssd_fn} if ssd_fn is not None else {}
 
     def prefill_step(params, batch, cache):
-        return model.prefill(params, batch, cache)
+        return model.prefill(params, batch, cache, **kw)
 
     return prefill_step
 
 
-def make_serve_step(cfg):
-    """One decode iteration: the greedy next token and the cache update."""
+def make_serve_step(cfg, *, temperature=0.0):
+    """One decode iteration: the greedy next token and the cache update.
+    ``temperature`` is taken and not read, as in the reference, which
+    decodes greedily whatever it is given (ROADMAP.md, R7)."""
     model = get_model(cfg)
 
     def serve_step(params, cache, tokens):
@@ -107,3 +115,9 @@ def make_serve_step(cfg):
         return next_tok, cache
 
     return serve_step
+
+
+def cache_shape(cfg, batch, max_len):
+    """The serving cache (``init_cache``) on the meta device: every leaf's
+    shape and dtype, no storage."""
+    return get_model(cfg).init_cache(batch, max_len, device="meta")

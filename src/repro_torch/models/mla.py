@@ -144,10 +144,8 @@ def mla_decode(cfg, params, x_t, cache):
     q_rope, krope_r = apply_rope(q_rope, krope_t[:, :, None, :],
                                  pos[:, None], theta=cfg.rope_theta)
     slots = cache["ckv"].shape[1]
-    bidx = torch.arange(B, device=x_t.device)
-    cache["ckv"][bidx, pos.long()] = ckv_t[:, 0].to(cache["ckv"].dtype)
-    cache["krope"][bidx, pos.long()] = krope_r[:, 0, 0].to(
-        cache["krope"].dtype)
+    attn.write_slot(cache["ckv"], pos.long(), ckv_t[:, 0])
+    attn.write_slot(cache["krope"], pos.long(), krope_r[:, 0, 0])
     cache["len"].copy_(pos + 1)
 
     f32 = torch.float32

@@ -304,13 +304,37 @@ def attention_prefill(params, x, positions, cache, **kw):
     B, S = x.shape[:2]
     slots = cache["k"].shape[1]
     take = min(S, slots)
-    idx = ((q_pos[-take:] % slots).long() if kw.get("window")
-           else torch.arange(take, device=x.device))
-    cache["k"][:, idx] = k[:, -take:].to(cache["k"].dtype)
-    cache["v"][:, idx] = v[:, -take:].to(cache["v"].dtype)
-    cache["pos"][:, idx] = q_pos[None, -take:].to(torch.int32)
+    pos = q_pos[None, -take:].to(torch.int32).expand(B, take)
+    if kw.get("window"):   # a ring: position p in slot p % slots
+        idx = (q_pos[-take:] % slots).long()
+        for name, t in (("k", k[:, -take:]), ("v", v[:, -take:]),
+                        ("pos", pos)):
+            write_slots(cache[name], idx, t)
+    else:                  # the first take slots
+        cache["k"][:, :take] = k[:, -take:].to(cache["k"].dtype)
+        cache["v"][:, :take] = v[:, -take:].to(cache["v"].dtype)
+        cache["pos"][:, :take] = pos
     cache["len"] += S
     return params.wo(out.reshape(B, S, n_heads * head_dim)), cache
+
+
+def write_slots(cache_t, idx, vals):
+    """``cache_t[:, idx] = vals`` for distinct slots ``idx`` (n,), vals
+    (B, n, ...), in place, as a scatter along the slot dim, which a
+    batch-sharded cache writes locally."""
+    shape = vals.shape
+    view = idx.view(1, -1, *([1] * (len(shape) - 2))).expand(shape)
+    cache_t.scatter_(1, view, vals.to(cache_t.dtype))
+
+
+def write_slot(cache_t, slot, vals):
+    """``cache_t[b, slot[b]] = vals[b]`` for every row b, in place, as a
+    scatter along the slot dim, which a batch-sharded cache (a DTensor
+    split over its rows) writes locally."""
+    B = cache_t.shape[0]
+    tail = cache_t.shape[2:]
+    idx = slot.view(B, 1, *([1] * len(tail))).expand(B, 1, *tail)
+    cache_t.scatter_(1, idx, vals.to(cache_t.dtype)[:, None])
 
 
 def attention_decode(params, x, cache, *, n_heads, n_kv_heads, head_dim,
@@ -326,10 +350,9 @@ def attention_decode(params, x, cache, *, n_heads, n_kv_heads, head_dim,
     # slot
     slot = (pos % slots if window
             else torch.clamp_max(pos, slots - 1)).long()
-    bidx = torch.arange(B, device=x.device)
-    cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
-    cache["pos"][bidx, slot] = pos
+    write_slot(cache["k"], slot, k[:, 0])
+    write_slot(cache["v"], slot, v[:, 0])
+    write_slot(cache["pos"], slot, pos)
     cache["len"].copy_(pos + 1)
 
     kc = _repeat_kv(cache["k"], n_heads)

@@ -59,7 +59,9 @@ def rmsnorm(scale, x, *, eps=1e-6):
 
 
 def embedding(embed, tokens):
-    return embed[tokens]
+    """``embed[tokens]`` as ``F.embedding``, whose forward and backward
+    DTensor can split over a vocab-sharded table."""
+    return torch.nn.functional.embedding(tokens, embed)
 
 
 def embedding_logits(embed, x):

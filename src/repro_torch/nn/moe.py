@@ -63,10 +63,23 @@ def _expert_ffn(experts, buf):
     return torch.bmm(h, experts.down)
 
 
-def _route(params, xf, top_k, normalize_weights):
+def router_noise_draw(shape, generator, device):
+    """The router's standard normal noise (float32), drawn from
+    ``generator`` (the reference draws ``jax.random.normal(rng, shape)``)."""
+    return torch.randn(shape, generator=generator, device=device)
+
+
+def _route(params, xf, top_k, normalize_weights, router_noise=0.0,
+           generator=None):
     """float32 router probabilities (N, E) and the top_k choices' weights
-    and experts (N, k), highest first."""
-    probs = torch.softmax(xf.to(torch.float32) @ params.router.w, dim=-1)
+    and experts (N, k), highest first. With ``router_noise`` and a
+    ``generator``, the logits get ``router_noise`` times standard normal
+    noise first, as the reference's ``router_noise`` and ``rng`` do."""
+    logits = xf.to(torch.float32) @ params.router.w
+    if router_noise and generator is not None:
+        logits = logits + router_noise * router_noise_draw(
+            logits.shape, generator, logits.device)
+    probs = torch.softmax(logits, dim=-1)
     top_vals, top_idx = torch.topk(probs, top_k, dim=-1)
     if normalize_weights:
         top_vals = top_vals / torch.clamp_min(
@@ -80,8 +93,11 @@ def _shared(params, xf):
 
 
 def moe_apply(params, x, *, top_k, capacity_factor=1.25,
-              normalize_weights=True):
+              normalize_weights=True, router_noise=0.0, generator=None):
     """x: (B, S, d) -> (y (B, S, d) in x's dtype, aux loss float32 scalar).
+    ``router_noise`` with a ``torch.Generator`` adds noise to the router
+    logits (the reference's ``router_noise`` and ``rng``); without a
+    generator none is added, as in the reference.
 
     Choice j of token n goes to slot (rank of n among the tokens whose
     choice j is the same expert) + (that expert's tokens from choices
@@ -90,19 +106,21 @@ def moe_apply(params, x, *, top_k, capacity_factor=1.25,
     E = params.router.w.shape[1]
     N = B * S
     xf = x.reshape(N, d)
-    probs, top_vals, top_idx = _route(params, xf, top_k, normalize_weights)
+    probs, top_vals, top_idx = _route(params, xf, top_k, normalize_weights,
+                                      router_noise, generator)
 
     C = int(math.ceil(N * top_k / E * capacity_factor))
-    buf = torch.zeros((E, C + 1, d), dtype=x.dtype, device=x.device)
+    buf = xf.new_zeros((E, C + 1, d))
     counts = torch.zeros((E,), dtype=torch.int64, device=x.device)
     slot_of = []
     for j in range(top_k):
         e = top_idx[:, j]
         onehot = F.one_hot(e, E)
-        within = torch.cumsum(onehot, dim=0) - onehot  # rank among choice j
-        pos = within.gather(1, e[:, None])[:, 0] + counts[e]
-        counts = counts + onehot.sum(dim=0)
-        slot = torch.where(pos < C, pos, C)
+        csum = torch.cumsum(onehot, dim=0)
+        within = csum - onehot  # rank among choice j
+        pos = within.gather(1, e[:, None])[:, 0] + counts.gather(0, e)
+        counts = counts + csum[-1]   # choice j's tokens per expert
+        slot = pos.clamp_max(C)   # the reference's where(pos < C, pos, C)
         buf.index_put_((e, slot), xf, accumulate=True)
         slot_of.append((e, slot))
 
@@ -116,8 +134,8 @@ def moe_apply(params, x, *, top_k, capacity_factor=1.25,
     if hasattr(params, "shared"):
         y = y + _shared(params, xf)
 
-    frac_tokens = sum(torch.bincount(top_idx[:, j], minlength=E)
-                      for j in range(top_k)).to(torch.float32) / (N * top_k)
+    # every choice's tokens per expert: the reference's sum of bincounts
+    frac_tokens = counts.to(torch.float32) / (N * top_k)
     aux = E * torch.sum(frac_tokens * probs.mean(dim=0))
     return y.reshape(B, S, d).to(x.dtype), aux
 

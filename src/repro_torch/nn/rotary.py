@@ -58,9 +58,8 @@ def apply_mrope(q, k, positions_thw, *, sections=(16, 24, 24),
         raise ValueError(f"mrope sections {sections} do not sum to "
                          f"head_dim // 2 = {d // 2}")
     inv_freq = rope_frequencies(d, theta=theta, device=q.device)
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=q.device),
-        torch.tensor(sections, device=q.device))             # (d/2,)
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=q.device)  # (d/2,)
     pos = positions_thw[sec_id].permute(1, 2, 0)              # (B, S, d/2)
     ang = pos.to(torch.float32) * inv_freq
     cos = torch.cos(ang)[:, :, None, :].to(q.dtype)

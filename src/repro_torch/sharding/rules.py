@@ -210,7 +210,9 @@ def cache_specs(cfg, cache_tree, mesh):
 
     def spec(names, leaf):
         base = tuple(leaf.shape)
-        leafname = names[-1]
+        # the leaf's own name: a per-layer list (encdec's cross_k.3) ends
+        # in its index
+        leafname = [n for n in names if not n.isdigit()][-1]
         dims = [None] * len(base)
         # batch is dim 0 of every cache leaf
         if base and base[0] % _axis_size(mesh, baxes) == 0:

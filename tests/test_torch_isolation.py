@@ -208,3 +208,39 @@ def test_checkpoint_refuses_the_unported_engine_save(tmp_path):
              for f in ("ckpt.bin", "manifest.json")]
     assert blobs[0] == blobs[2] and blobs[1] == blobs[3]
     assert latest_step(str(tmp_path / "engine")) == 1
+
+
+def test_dry_run_modules_import_with_no_side_effect():
+    """``repro_torch.launch.dryrun`` and ``hlo_analysis`` import with JAX
+    blocked, load no reference module, set no environment variable (the
+    reference's dry run sets XLA_FLAGS at import) and start no process
+    group."""
+    code = (
+        "import os, sys\n"
+        "sys.modules['jax'] = None\n"
+        "before = dict(os.environ)\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.hlo_analysis\n"
+        "import torch.distributed as dist\n"
+        "assert dict(os.environ) == before, set(os.environ) ^ set(before)\n"
+        "assert not dist.is_initialized()\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k == 'repro' or k.startswith('repro.')\n"
+        "             or k.startswith('jax.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_every_reference_module_has_a_counterpart():
+    """A listing of both packages: each module of the JAX package has a
+    file of the same path in the port (the Pallas kernels' ``kernel.py``
+    by their CUDA wrappers' packages, which hold ``kernel.py`` too)."""
+    ref = {p.relative_to(SRC / "repro").as_posix()
+           for p in (SRC / "repro").rglob("*.py")}
+    port = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"launch/dryrun.py", "launch/hlo_analysis.py"} <= port
+    assert not ref - port, sorted(ref - port)
