@@ -10,9 +10,11 @@ port's entry points:
   1. device     the card's name and power limit (nvidia-smi)
   2. build      nvcc builds the kernel libraries from csrc/*.cu (sim_step,
                 contention, flash_attention, ssd_scan), one nvcc each,
-                started together; the SASS of K4's and K5's bf16 kernels
-                must hold tensor-core instructions (HMMA/HGMMA) and
-                asynchronous copies (LDGSTS/UTMALDG); every K1 and K3
+                started together; the SASS of K4's bf16 kernel must hold
+                wgmma (HGMMA) and TMA loads (UTMALDG) and no mma.sync
+                (HMMA), and ptxas must report no spill in it; K5's bf16
+                kernel must hold tensor-core instructions (HMMA/HGMMA)
+                and asynchronous copies (LDGSTS/UTMALDG); every K1 and K3
                 instance's registers, shared memory and spills (ptxas),
                 and no spill in any of them
   3. parity     the sim kernels (K1, K2) against their plain PyTorch
@@ -558,7 +560,7 @@ TRAIN_K1_CALL = 1 + 100 + 2 * 11 + 5
 
 # device kernel names: every kernel of a library carries its prefix (the
 # float32 and bf16 routes alike); the main paths run the bf16 kernels
-FA_PREFIX, FA_PATH_KERNEL = "flash_attention_", "flash_attention_bf16_kernel"
+FA_PREFIX, FA_PATH_KERNEL = "flash_attention_", "flash_attention_wgmma_kernel"
 SSD_PREFIX, SSD_PATH_KERNEL = "ssd_scan_", "ssd_scan_bf16_kernel"
 
 
@@ -641,23 +643,27 @@ def device_ms(torch, fn, kernel_prefix, n=20):
 PROFILER_WINDOWS = {"calls": 0, "empty": 0}
 
 
+SASS_OPS = ("HMMA", "HGMMA", "LDGSTS", "UTMALDG")
+
+
 def sass_counts(lib_path):
     """Per kernel function of a built library: its tensor-core instructions
     (HMMA for mma.sync, HGMMA for wgmma) and asynchronous copies into shared
-    memory (LDGSTS for cp.async, UTMALDG for TMA), counted in the SASS that
-    ``cuobjdump -sass`` prints."""
+    memory (LDGSTS for cp.async, UTMALDG for TMA), each counted apart in the
+    SASS that ``cuobjdump -sass`` prints."""
     from repro_torch.kernels import build
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     out = subprocess.run([cuobjdump, "-sass", str(lib_path)],
                          capture_output=True, text=True, check=True).stdout
+    ops = re.compile(r"\b(" + "|".join(SASS_OPS) + r")\b")
     counts, fn = {}, None
     for line in out.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = {"mma": 0, "async_copy": 0}
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
         elif fn is not None:  # the hex encodings hold no such word
-            counts[fn]["mma"] += ("HMMA" in line) or ("HGMMA" in line)
-            counts[fn]["async_copy"] += ("LDGSTS" in line) or ("UTMALDG" in line)
+            for op in set(ops.findall(line)):
+                counts[fn][op] += 1
     return counts
 
 
@@ -4801,22 +4807,45 @@ def main():
         if spilled:
             fail(f"{name}: registers spilled in {spilled}")
     # the bf16 routes of K4 and K5 run on the tensor cores and copy into
-    # shared memory asynchronously: count both in the built SASS
+    # shared memory asynchronously: count both in the built SASS. K4's is
+    # the wgmma route: HGMMA and UTMALDG, no HMMA, and no spill
     sass = {}
     for name, kernel in (("flash_attention", FA_PATH_KERNEL),
                          ("ssd_scan", SSD_PATH_KERNEL)):
         counts = sass_counts(build.library_path(name))
         for fn, c in counts.items():
-            print(f"[sass] {name}: {fn}: {c['mma']} HMMA/HGMMA, "
-                  f"{c['async_copy']} LDGSTS/UTMALDG")
+            print(f"[sass] {name}: {fn}: " + ", ".join(
+                f"{c[op]} {op}" for op in SASS_OPS))
         path = {fn: c for fn, c in counts.items() if kernel in fn}
-        sass[name] = {"mma": sum(c["mma"] for c in path.values()),
-                      "async_copy": sum(c["async_copy"]
-                                        for c in path.values()),
-                      "functions": len(path)}
+        sass[name] = {op: sum(c[op] for c in path.values())
+                      for op in SASS_OPS}
+        sass[name]["functions"] = len(path)
         print(f"[sass] {name}: {kernel}: {json.dumps(sass[name])}")
-        if not path or min(min(c["mma"], c["async_copy"])
-                           for c in path.values()) == 0:
+        if not path:
+            fail(f"no {kernel} in lib{name}")
+        if name == "flash_attention":
+            bad = {fn: c for fn, c in path.items()
+                   if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"]}
+            if bad:
+                fail(f"{kernel} is not the wgmma/TMA route in some "
+                     f"instance (HGMMA > 0, UTMALDG > 0, HMMA = 0 wanted): "
+                     f"{json.dumps(bad)}")
+            rows = [r for r in ptxas_report(build.nvcc_output(name))
+                    if kernel in r["function"]]
+            for r in rows:
+                print(f"[ptxas] {name}: {r['function']}: {r['registers']} "
+                      f"registers, {r['smem_bytes']} bytes smem, spill "
+                      f"stores {r['spill_stores']}, loads "
+                      f"{r['spill_loads']}")
+            if not rows:
+                fail(f"no ptxas report for {kernel}: was it built in this "
+                     f"run?")
+            spilled = [r["function"] for r in rows
+                       if r["spill_stores"] or r["spill_loads"]]
+            if spilled:
+                fail(f"{name}: registers spilled in {spilled}")
+        elif min(min(c["HMMA"] + c["HGMMA"], c["LDGSTS"] + c["UTMALDG"])
+                 for c in path.values()) == 0:
             fail(f"{kernel} in lib{name} has no tensor-core instruction or "
                  f"no asynchronous copy in some instance: {json.dumps(path)}")
     lap(2)

@@ -12,47 +12,71 @@
 //   s = live ? s : -1e30                      (-1e30, not -inf)
 //   out[i] = sum_j p[i, j] v[j] / max(l[i], 1e-30),  p = exp(s - running max)
 // with the reference's online softmax: a running max m, normalizer l and
-// accumulator per row, all float32, updated once per kv tile of 64 keys; a
-// row whose running max is still -1e30 keeps p = 0. The kv head of q head h
-// is h / (Hq / Hkv) (GQA). The output is written in the inputs' dtype.
-// Ragged S is handled by bounds masks (rows past S are not stored, keys past
-// Skv are masked), where the reference pads to its block size; for the
-// self-attention it serves (Skv == S) the padded keys sit after every query
-// and are causally masked, so the results are the same.
+// accumulator per row, all float32, updated once per kv tile (128 keys in
+// the bf16 route, 64 in the float32 one); a row whose running max is still
+// -1e30 keeps p = 0. The kv head of q head h is h / (Hq / Hkv) (GQA). The
+// output is written in the inputs' dtype. Ragged S is handled at the edges
+// (rows past S are not stored, keys past Skv are masked), where the
+// reference pads to its block size; for the self-attention it serves
+// (Skv == S) the padded keys sit after every query and are causally masked,
+// so the results are the same.
 //
 // Layout, in and out: q (B, S, Hq, D), k/v (B, Skv, Hkv, D), o (B, S, Hq, D),
 // contiguous, on 16-byte boundaries. D is a template parameter: 64 and 128.
 //
-// What bounds it on this card: the operations. Causal prefill at smollm-135m
-// (B=8, Hq=9, S=1024, D=64) is 4 * B * Hq * D * (S (S + 1) / 2) = 9.7 GFLOP
-// against 25 MB of q, k, v and o (chip_smoke.py::fa_bound): 9.8 us at the
-// dense bf16 tensor-core rate (989 TFLOP/s), 7.5 us of bytes at 3.35 TB/s.
+// What bounds it on this card: the operations. Causal prefill is
+// 4 * B * Hq * D * S (S + 1) / 2 operations against q, k, v and o read or
+// written once (chip_smoke.py::fa_bound): at smollm-135m (B=8, S=1024, 9 q
+// over 3 kv heads, D=64) 9.7 GFLOP, 9.8 us at the dense bf16 tensor-core
+// rate (989 TFLOP/s) against 7.5 us of bytes at 3.35 TB/s; at granite-34b
+// (48 q heads over 1, D=128) 103 GFLOP, 104 us against 27 us of bytes.
 //
 // Two routes, picked by the inputs' dtype in flash_attention_launch:
 //
-// bf16 (the serving path): flash_attention_bf16_kernel, on the tensor cores.
-// One block of 4 warps per (64-row q tile, q head, batch), 4 blocks per SM
-// at D = 64; q tiles ride the grid's slowest axis, those with the most kv
-// tiles first. Each warp owns 16 q rows, whose Q fragments are read once
-// from shared memory with ldmatrix and kept in registers. The kernel walks
-// only the kv tiles of 64 keys that hold a live key for some row of the q
-// tile (causal: up to the diagonal tile; window: from the tile holding
-// q0 - window + 1), and a warp skips the tiles and the 16-key slices that
-// hold no live key for its own rows. K and V tiles are bf16 in shared
-// memory, double-buffered with cp.async (16 bytes a thread): the next
-// tile's copy is in flight while this one computes. Rows are padded by 16
-// bytes, so the 8 row addresses of an ldmatrix fall in 8 distinct groups of
-// 4 banks. S = Q K^T runs on mma.sync.m16n8k16 bf16 -> f32 (16 x 64 scores
-// a warp, all in registers); the -1e30 masks apply only on tiles that cross
-// the diagonal, a window's edge or Skv, and the scale is folded into the
-// exponent (2^((s - m) scale log2 e) by ex2.approx; scale > 0 commutes with
-// the max and the masks). The online softmax runs in registers (row max by
-// quad shuffles). P is rounded to bf16 in registers, where it is the A
-// fragment of O += P V (mma.sync, V read through ldmatrix.trans) and of
-// l += P 1 (one more mma against a fragment of ones), so l sums exactly the
-// rounded weights the output sees: that rounding (2^-9 relative a weight)
-// is the route's one rounding beyond the output's. The output tile is
-// staged through the warp's own rows of the Q tile for 16-byte stores.
+// bf16 (the serving path): flash_attention_wgmma_kernel, on Hopper's warpgroup
+// tensor-core instructions. One block of three warpgroups per 128 q rows, one
+// block per SM; q tiles are taken those with the most kv tiles first, on the
+// grid's slowest axis, or on its fastest where k and v outgrow L2 (more than 40
+// MB of the 50), so that the blocks that read one (batch, kv head)'s tiles run
+// together. Warpgroup 0 is the producer: it gives up its registers
+// (setmaxnreg.dec to 24) and one of its threads issues every copy as a TMA box
+// from tensor maps on the tensors as they lie (4-d: D, H, S, B; the 128-byte
+// swizzle; built on each call in the C entry). The q tiles are loaded once; kv
+// tiles of 128 keys run through a ring of 2 stages in shared memory (Q 32 KB +
+// 2 x (K 32 KB + V 32 KB) at D = 128, half at 64), each stage with a full
+// barrier per operand (armed with the tile's bytes) and an empty barrier that
+// each consumer warp arrives at once the wgmma reading the stage has retired.
+// Warpgroups 1 and 2 are the consumers (setmaxnreg.inc to 240), 64 q rows each.
+// Where Hq / Hkv is even they take the same 64 positions of two q heads of one
+// kv head, whose causal extents are equal; otherwise 128 consecutive positions
+// of one head. The walk runs over the kv tiles that hold a live key for some
+// row of the block (from the window's first live tile to the diagonal), and a
+// consumer whose rows have none in a tile skips its products there (it still
+// waits on and releases the stage). Per tile, a consumer computes S = Q K^T by
+// wgmma m64n128k16 with both operands read from shared memory through
+// descriptors; applies the -1e30 masks only on tiles that cross the diagonal, a
+// window's edge or Skv; runs the online softmax on the accumulator in registers
+// (row max over the quad by shuffles, the scale folded into the exponent as
+// 2^((s - m) scale log2 e) by ex2.approx); rounds P to bf16 in the
+// accumulator's order, which is the register A operand of O += P V (wgmma
+// m64nDk16, V read from shared memory as an MN-major operand: no transpose
+// copy), and sums l from the same rounded weights: that rounding (2^-9 relative
+// a weight) is the route's one rounding beyond the output's. The output, acc /
+// max(l, 1e-30) in bf16, is written into the consumer's q tile in the swizzled
+// layout and stored by TMA, which clips rows past S.
+//
+// What this does about the limits of the mma.sync route it replaced (one
+// warp per 16 rows, ldmatrix, cp.async; 168 TFLOP/s at granite's shape):
+// shared memory is read by the tensor cores themselves, and each kv tile
+// feeds 128 q rows instead of 64 (four 16-row warps re-reading it through
+// ldmatrix); at D = 128 the consumers hold S, O and P in 240 registers
+// where the old route's cap spilled; no thread spends instructions on
+// addresses or copies; and under GQA with an even group the kv tiles of a
+// head are loaded once per pair of q heads. Left for later: a consumer's
+// softmax of one tile overlapping its product of the next, kv tiles
+// multicast across a cluster, and a persistent scheduler (PERF.md, section
+// 6, measures what each block's start and end, the exponentials and the
+// kv tiles' traffic out of L2 cost).
 //
 // float32 (the first design, kept for the 1e-5 parity that rules out TF32):
 // flash_attention_f32_kernel, scalar float32 FMAs outside the tensor cores
@@ -65,6 +89,7 @@
 //
 // No atomics in either route: the result does not change between runs.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -244,59 +269,187 @@ __global__ void __launch_bounds__(kF32Threads)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 route: tensor cores (mma.sync) and cp.async
+// bf16 route: wgmma, TMA and an mbarrier ring (sm_90a)
 // ---------------------------------------------------------------------------
 
-constexpr int kBf16Threads = 32 * (kBQ / 16);  // a warp per 16 q rows
+constexpr int kWgRows = 64;    // q rows of one consumer warpgroup
+constexpr int kTileK = 128;    // keys per kv tile
+constexpr int kStages = 2;     // kv tiles in flight in shared memory
+constexpr int kBf16Threads = 384;  // a producer and two consumer warpgroups
+constexpr int kPanel = 64;     // bf16 values in a 128-byte swizzle span
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;  // 24 * 128 + 2 * 240 * 128 <= 65,536
+static_assert(kProducerRegs * 128 + 2 * kConsumerRegs * 128 <= 65536,
+              "the three warpgroups' registers fit the SM's file");
+// k and v larger than this do not stay in the 50 MB L2 across the grid
+constexpr long long kKvL2Bytes = 40ll << 20;
+
+// Shared memory of one block, in bytes from a 1024-byte boundary (the 128B
+// swizzle's atom is 8 rows of 128 bytes): each consumer's q tile (then its
+// output tile), the ring's k and v tiles, and the ring's mbarriers. A tile
+// row of D values is D / 64 panels of 128 bytes; panel p of a tile of R
+// rows starts at p * R * 128, as one TMA box of (R, 64) lands it.
+template <int D>
+struct Bf16Smem {
+  static constexpr int kQTile = kWgRows * D * 2;   // one consumer's q or o
+  static constexpr int kKvTile = kTileK * D * 2;   // one k or v tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + 2 * kQTile;
+  static constexpr int kV = kK + kStages * kKvTile;
+  static constexpr int kBar = kV + kStages * kKvTile;
+  // q_full, then k_full, v_full and empty for each stage
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages);
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes from global to shared memory, asynchronously; zeros where !valid
-// (src is then not read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// one arrival that also expects ``bytes`` of TMA transfers this phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
 }
 
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+// until the phase of parity ``parity`` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
+// a box of the 4-d tensor map (D, H, S, B) at (d0, h, s0, b) into shared
+// memory; reads past S come back as zeros and still count their bytes
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d0, int h, int s0,
+                                         int b) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(h),
+      "r"(s0), "r"(b)
+      : "memory");
 }
 
-// c += a b: a 16 x 16 bf16 (4 regs), b 16 x 8 bf16 (2 regs), c 16 x 8 f32
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
+// a box from shared memory to the map at (d0, h, s0, b); rows past S are
+// not written
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int d0, int h, int s0, int b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(d0), "r"(h), "r"(s0), "r"(b)
+      : "memory");
 }
+
+// A wgmma shared-memory descriptor for a 128B-swizzled operand: the start
+// address, the leading and stride byte offsets (16-byte units) and the
+// layout type 1 (128B swizzle) in bits 62-63. K-major (q, k): a row of 64
+// values is one 128-byte span, 8 rows are an atom of 1024 bytes (stride
+// offset), and a k16 step inside the span advances the start by 32 bytes.
+// MN-major (v): the leading offset steps 64 values along N (the next
+// panel), the stride offset 8 rows along K.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+#define WG_ACC8(i)                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_REGS32                                                       \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+  "%28, %29, %30, %31"
+#define WG_REGS64                                                       \
+  WG_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
+            "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "   \
+            "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// d (64 x 128, f32) = a b^T (+ d when accumulate): a 64 x 16 and b 128 x 16,
+// both bf16 K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" WG_REGS64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24), WG_ACC8(32),
+        WG_ACC8(40), WG_ACC8(48), WG_ACC8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x N, f32) += a b: a 64 x 16 bf16 in registers (4 per thread, the
+// accumulator's layout), b 16 x N bf16 MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" WG_REGS32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" WG_REGS64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24), WG_ACC8(32),
+        WG_ACC8(40), WG_ACC8(48), WG_ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef WG_ACC8
+#undef WG_REGS32
+#undef WG_REGS64
 
 // two floats rounded to nearest even into one bf16 pair (lo in the low half)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the sum of a bf16 pair, exactly as the rounded values
+__device__ __forceinline__ float bf16x2_sum(uint32_t x) {
+  return __uint_as_float(x << 16) + __uint_as_float(x & 0xFFFF0000u);
 }
 
 // 2^x by the special-function unit, flushing denormals (any weight below
@@ -307,218 +460,248 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-constexpr uint32_t kOnesBf16x2 = 0x3F803F80u;  // (1.0, 1.0) in bf16
-
-// 4 blocks per SM at D = 64: the 128-register cap spills 48 bytes a thread
-// and was still faster than 3 blocks without spills in a trial build; at
-// D = 128 the cap spills far more, so there the floor is one block
+// One block per 128 q rows: two q heads of one GQA group at the same 64
+// positions (``pair``: Hq / Hkv even), or 128 positions of one head. Warp
+// group 0 is the producer (one thread issues every TMA copy), 1 and 2 the
+// consumers, 64 rows each.
 template <int D>
-__global__ void __launch_bounds__(kBf16Threads, D == 64 ? 4 : 1)
-    flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                                const __nv_bfloat16* __restrict__ k,
-                                const __nv_bfloat16* __restrict__ v,
-                                __nv_bfloat16* __restrict__ o, int S, int Skv,
-                                int Hq, int Hkv, int window, float scale) {
-  constexpr int kLd = D + 8;          // padded smem row, in elements
-  constexpr int kKsteps = D / 16;     // k-steps of Q K^T
-  constexpr int kDtiles = D / 8;      // n-tiles of the output
-  constexpr int kChunks = D / 8;      // 16-byte pieces of a row
-  extern __shared__ uint4 smem_bf16[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_bf16);
-  __nv_bfloat16* Ks = Qs + kBQ * kLd;    // two buffers
-  __nv_bfloat16* Vs = Ks + 2 * kBK * kLd;  // two buffers
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const __grid_constant__ CUtensorMap to,
+                                 int S, int Skv, int Hq, int Hkv, int window,
+                                 float scale, int pair, int q_fast) {
+  using L = Bf16Smem<D>;
+  constexpr int kPanels = D / kPanel;
+  constexpr int kKsteps = D / 16;         // k16 steps of Q K^T
+  constexpr int kQPanel = kWgRows * 128;  // bytes of a q panel
+  constexpr int kKvPanel = kTileK * 128;  // bytes of a k or v panel
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const uint32_t q_full = base + L::kBar;
+  const uint32_t k_full = q_full + 8;
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t empty = v_full + 8 * kStages;
 
-  // q tiles on the slowest grid axis, the longest (causal) first
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;   // the fragment's row within 8
-  const int tq = lane % 4;  // the fragment's column pair
-  const long long q_stride = (long long)Hq * D;
-  const long long kv_stride = (long long)Hkv * D;
-  const __nv_bfloat16* qb = q + ((long long)b * S * Hq + h) * D;
-  const __nv_bfloat16* kb = k + ((long long)b * Skv * Hkv + hk) * D;
-  const __nv_bfloat16* vb = v + ((long long)b * Skv * Hkv + hk) * D;
-
-  // rows row0 .. row0 + 63 into a padded tile, zeros at or past n_rows
-  auto load_tile = [&](const __nv_bfloat16* base, long long row_stride,
-                       int row0, int n_rows, __nv_bfloat16* tile) {
-    for (int c = threadIdx.x; c < kBK * kChunks; c += kBf16Threads) {
-      const int r = c / kChunks;
-      const int e = (c % kChunks) * 8;
-      const bool ok = row0 + r < n_rows;
-      cp_async16(smem_addr(tile + r * kLd + e),
-                 ok ? base + (row0 + r) * row_stride + e : base, ok);
-    }
-  };
-
-  // the kv tiles that hold a live key for some row of this q tile
-  const int kt_end = min((Skv + kBK - 1) / kBK, (q0 + kBQ - 1) / kBK + 1);
+  // q tiles the longest (causal) first: on the slowest grid axis, or on
+  // the fastest where k and v outgrow L2, so that the blocks of one (batch,
+  // kv head) run together and read its kv tiles while L2 holds them
+  const int rows = pair ? kWgRows : 2 * kWgRows;  // positions of this block
+  const int q_tiles = q_fast ? gridDim.x : gridDim.z;
+  const int q0 = (q_tiles - 1 - (q_fast ? blockIdx.x : blockIdx.z)) * rows;
+  const int hb = q_fast ? blockIdx.y : blockIdx.x;  // head (or pair) index
+  const int h0 = pair ? 2 * hb : hb;
+  const int b = q_fast ? blockIdx.z : blockIdx.y;
+  const int hk = h0 / (Hq / Hkv);
+  // the kv tiles that hold a live key for some row of this block
+  const int kt_end =
+      min((Skv + kTileK - 1) / kTileK, (q0 + rows - 1) / kTileK + 1);
   int kt_begin = 0;
-  if (window > 0 && q0 - (window - 1) > 0) kt_begin = (q0 - (window - 1)) / kBK;
+  if (window > 0 && q0 - (window - 1) > 0)
+    kt_begin = (q0 - (window - 1)) / kTileK;
 
-  load_tile(qb, q_stride, q0, S, Qs);
-  cp_async_commit();
-  if (kt_begin < kt_end) {
-    load_tile(kb, kv_stride, kt_begin * kBK, Skv, Ks);
-    load_tile(vb, kv_stride, kt_begin * kBK, Skv, Vs);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full + 8 * st, 1);
+      mbar_init(v_full + 8 * st, 1);
+      mbar_init(empty + 8 * st, 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_commit();
-  cp_async_wait<1>();  // the q tile has landed
   __syncthreads();
 
-  const int r0 = warp * 16;  // this warp's rows in the q tile
-  uint32_t qf[kKsteps][4];
-#pragma unroll
-  for (int ks = 0; ks < kKsteps; ++ks)
-    ldsm_x4(smem_addr(Qs + (r0 + lane % 16) * kLd + ks * 16 + (lane / 16) * 8),
-            qf[ks]);
-
-  // acc[n]: rows g and g + 8 of the output's n-tile n; lsum: the same rows'
-  // sums of P, by a product with a fragment of ones
-  float acc[kDtiles][4], lsum[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < kDtiles; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf};  // running max of the raw dots
-  const float sl = scale * kLog2e;  // exp(scale (s - m)) = 2^(sl (s - m))
-  const int row_lo = q0 + r0 + g;   // this thread's rows: row_lo, row_lo + 8
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int buf = (kt - kt_begin) & 1;
-    const int k0 = kt * kBK;
-    if (kt + 1 < kt_end) {  // the next tile's copy is in flight meanwhile
-      load_tile(kb, kv_stride, k0 + kBK, Skv, Ks + (buf ^ 1) * kBK * kLd);
-      load_tile(vb, kv_stride, k0 + kBK, Skv, Vs + (buf ^ 1) * kBK * kLd);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every copy --------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * L::kQTile);
+      for (int c = 0; c < 2; ++c)
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(base + L::kQ + c * L::kQTile + p * kQPanel, &tq, q_full,
+                   p * kPanel, pair ? h0 + c : h0,
+                   pair ? q0 : q0 + c * kWgRows, b);
+      for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
+        const int st = i % kStages;
+        // the stage's last tile has been read by both consumers
+        mbar_wait(empty + 8 * st, ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(k_full + 8 * st, L::kKvTile);
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(base + L::kK + st * L::kKvTile + p * kKvPanel, &tk,
+                   k_full + 8 * st, p * kPanel, hk, kt * kTileK, b);
+        mbar_expect_tx(v_full + 8 * st, L::kKvTile);
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(base + L::kV + st * L::kKvTile + p * kKvPanel, &tv,
+                   v_full + 8 * st, p * kPanel, hk, kt * kTileK, b);
+      }
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile has landed
-    __syncthreads();
-    const __nv_bfloat16* Kt = Ks + buf * kBK * kLd;
-    const __nv_bfloat16* Vt = Vs + buf * kBK * kLd;
+  } else {
+    // ---- consumers: 64 q rows each --------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int c = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32;
+    const int lane = t % 32;
+    const int g = lane / 4;   // the accumulator's row within 8
+    const int tq = lane % 4;  // the accumulator's column pair
+    const int qa = pair ? q0 : q0 + c * kWgRows;  // this consumer's first row
+    const int row_lo = qa + 16 * warp + g;  // this thread's rows: +0, +8
+    const uint32_t q_s = base + L::kQ + c * L::kQTile;
 
-    // the last key of the tile that is live for some row of this warp, and
-    // whether any is: a tile wholly above the warp's rows or wholly before
-    // its window leaves m, l and acc as they are
-    const int last = q0 + r0 + 15 - k0;
-    const bool warp_live =
-        last >= 0 && (window <= 0 || k0 + kBK - 1 > q0 + r0 - window);
-    if (warp_live) {
-      float s[8][4];
+    float s[64];          // S = Q K^T: 64 rows x 128 keys
+    float acc[D / 2];     // O: 64 rows x D
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < kKsteps; ++ks) {
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};  // running max of the raw dots
+    float lsum[2] = {0.f, 0.f};       // this thread's part of l
+    const float sl = scale * kLog2e;  // exp(scale (s - m)) = 2^(sl (s - m))
+
+    mbar_wait(q_full, 0);
+    for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
+      const int st = i % kStages;
+      const uint32_t parity = (i / kStages) & 1;
+      const int k0 = kt * kTileK;
+      const uint32_t k_s = base + L::kK + st * L::kKvTile;
+      const uint32_t v_s = base + L::kV + st * L::kKvTile;
+      // every consumer waits on every tile, live or not, so that its
+      // parity never runs ahead of the ring
+      mbar_wait(k_full + 8 * st, parity);
+      // a tile wholly above this consumer's rows or wholly before their
+      // window leaves m, l and acc as they are
+      const bool live = k0 <= qa + kWgRows - 1 &&
+                        (window <= 0 || qa - (k0 + kTileK - 1) < window);
+      if (live) {
+        wgmma_fence();
 #pragma unroll
-        for (int jp = 0; jp < 4; ++jp) {  // keys 16 jp .. 16 jp + 15
-          if (16 * jp > last) continue;
-          uint32_t bf[4];
-          ldsm_x4(smem_addr(Kt + (16 * jp + lane % 8 + (lane / 16) * 8) * kLd +
-                            ks * 16 + ((lane / 8) % 2) * 8),
-                  bf);
-          mma_bf16(s[2 * jp], qf[ks], bf[0], bf[1]);
-          mma_bf16(s[2 * jp + 1], qf[ks], bf[2], bf[3]);
+        for (int ks = 0; ks < kKsteps; ++ks)
+          wgmma_ss_n128(
+              s,
+              sw128_desc(q_s + (ks / 4) * kQPanel + (ks % 4) * 32, 16, 1024),
+              sw128_desc(k_s + (ks / 4) * kKvPanel + (ks % 4) * 32, 16, 1024),
+              ks > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+
+        // the -1e30 masks, only where the tile crosses the diagonal, a
+        // window's edge or Skv for some row of this consumer; the scale is
+        // folded into the exponent (scale > 0: the max and the masks
+        // commute with it)
+        const bool need_mask = k0 + kTileK - 1 > qa || k0 + kTileK > Skv ||
+                               (window > 0 && qa + kWgRows - 1 - k0 >= window);
+        if (need_mask) {
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qi = row_lo + (e / 2) * 8;
+              const int kj = k0 + 8 * j + 2 * tq + (e % 2);
+              const bool ok =
+                  kj < Skv && kj <= qi && (window <= 0 || qi - kj < window);
+              s[4 * j + e] = ok ? s[4 * j + e] : kNegInf;
+            }
         }
-      }
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+          mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+        }
+        float mlog[2], corr[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          corr[r] = ex2((m[r] - mx[r]) * sl);
+          // a row with no live key yet keeps p = 0: 2^(s sl - inf) = 0
+          mlog[r] = mx[r] <= kNegInf * 0.5f ? __int_as_float(0x7f800000)
+                                            : mx[r] * sl;
+          m[r] = mx[r];
+        }
 
-      // the -1e30 masks, only where the tile crosses the diagonal, a
-      // window's edge or Skv for some row of this warp; the scale is folded
-      // into the exponent (scale > 0: the max and the masks commute with it)
-      const bool need_mask = q0 + r0 - k0 < kBK - 1 || k0 + kBK > Skv ||
-                             (window > 0 && last >= window);
-      if (need_mask) {
+        // P in bf16 as the A operand of P V: keys 16 kk .. 16 kk + 15 are
+        // the accumulator's column blocks 2 kk and 2 kk + 1; l sums the
+        // rounded weights the output sees
+        uint32_t pf[8][4];
+        float ps[2] = {0.f, 0.f};
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < 16; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qi = row_lo + (e / 2) * 8;
-            const int kj = k0 + 8 * j + 2 * tq + (e % 2);
-            const bool live =
-                kj < Skv && kj <= qi && (window <= 0 || qi - kj < window);
-            s[j][e] = live ? s[j][e] : kNegInf;
+          for (int r = 0; r < 2; ++r) {
+            const uint32_t x =
+                pack_bf16(ex2(fmaf(s[4 * j + 2 * r], sl, -mlog[r])),
+                          ex2(fmaf(s[4 * j + 2 * r + 1], sl, -mlog[r])));
+            pf[j / 2][(j % 2) * 2 + r] = x;
+            ps[r] += bf16x2_sum(x);
           }
-      }
-      float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+        for (int r = 0; r < 2; ++r) lsum[r] = lsum[r] * corr[r] + ps[r];
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          acc[4 * n] *= corr[0];
+          acc[4 * n + 1] *= corr[0];
+          acc[4 * n + 2] *= corr[1];
+          acc[4 * n + 3] *= corr[1];
+        }
+
+        mbar_wait(v_full + 8 * st, parity);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kTileK / 16; ++kk) {
+          const uint64_t dv =
+              sw128_desc(v_s + kk * 16 * 128, kKvPanel, 1024);
+          if constexpr (D == 64)
+            wgmma_rs_n64(acc, pf[kk], dv);
+          else
+            wgmma_rs_n128(acc, pf[kk], dv);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+      } else {
+        mbar_wait(v_full + 8 * st, parity);
       }
-      float mlog[2], corr[2];
+      // this consumer's reads of the stage are done
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * st);
+    }
+
+    // out = acc / max(l, 1e-30) in bf16, into this consumer's q tile (its
+    // reads are done) in the 128B-swizzled layout the TMA store reads
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = lsum[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[r] = 1.f / fmaxf(l, 1e-30f);
+    }
+    uint8_t* const o_s = gbase + L::kQ + c * L::kQTile;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        corr[r] = ex2((m[r] - mx[r]) * sl);
-        // a row with no live key yet keeps p = 0: 2^(s sl - inf) = 0
-        mlog[r] = mx[r] <= kNegInf * 0.5f ? __int_as_float(0x7f800000) : mx[r] * sl;
-        m[r] = mx[r];
+        const int row = 16 * warp + g + 8 * r;
+        const int off = (n / 8) * kQPanel + row * 128 +
+                        (((n % 8) ^ (row % 8)) * 16) + tq * 4;
+        *reinterpret_cast<uint32_t*>(o_s + off) = pack_bf16(
+            acc[4 * n + 2 * r] * inv[r], acc[4 * n + 2 * r + 1] * inv[r]);
       }
-
-      // P in bf16, as the A fragments of P V and of the sums of P
-      uint32_t pf[4][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          pf[j / 2][(j % 2) * 2 + r] =
-              pack_bf16(ex2(fmaf(s[j][2 * r], sl, -mlog[r])),
-                        ex2(fmaf(s[j][2 * r + 1], sl, -mlog[r])));
-#pragma unroll
-      for (int n = 0; n < kDtiles; ++n) {
-        acc[n][0] *= corr[0];
-        acc[n][1] *= corr[0];
-        acc[n][2] *= corr[1];
-        acc[n][3] *= corr[1];
-      }
-      lsum[0] *= corr[0];
-      lsum[1] *= corr[0];
-      lsum[2] *= corr[1];
-      lsum[3] *= corr[1];
-
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {  // keys 16 kk .. 16 kk + 15
-        if (16 * kk > last) continue;
-#pragma unroll
-        for (int dp = 0; dp < kDtiles / 2; ++dp) {
-          uint32_t bf[4];
-          ldsm_x4_trans(
-              smem_addr(Vt + (16 * kk + lane % 8 + ((lane / 8) % 2) * 8) * kLd +
-                        16 * dp + (lane / 16) * 8),
-              bf);
-          mma_bf16(acc[2 * dp], pf[kk], bf[0], bf[1]);
-          mma_bf16(acc[2 * dp + 1], pf[kk], bf[2], bf[3]);
-        }
-        mma_bf16(lsum, pf[kk], kOnesBf16x2, kOnesBf16x2);
-      }
+    // the stores are seen by the TMA (the async proxy) once every thread of
+    // this consumer has made them
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+    if (t == 0) {
+      for (int p = 0; p < kPanels; ++p)
+        tma_store(&to, q_s + p * kQPanel, p * kPanel, pair ? h0 + c : h0, qa,
+                  b);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     }
-    __syncthreads();  // every read of this buffer is done before its refill
-  }
-
-  // out = acc / max(l, 1e-30), staged through this warp's rows of the q
-  // tile (no other warp reads them) for 16-byte stores
-  const float inv0 = 1.f / fmaxf(lsum[0], 1e-30f);
-  const float inv1 = 1.f / fmaxf(lsum[2], 1e-30f);
-  __nv_bfloat16* stage = Qs + r0 * kLd;
-#pragma unroll
-  for (int n = 0; n < kDtiles; ++n) {
-    *reinterpret_cast<uint32_t*>(stage + g * kLd + 8 * n + 2 * tq) =
-        pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
-    *reinterpret_cast<uint32_t*>(stage + (g + 8) * kLd + 8 * n + 2 * tq) =
-        pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
-  }
-  __syncwarp();
-  for (int c = lane; c < 16 * kChunks; c += 32) {
-    const int r = c / kChunks;
-    const int e = (c % kChunks) * 8;
-    const int qi = q0 + r0 + r;
-    if (qi < S)
-      *reinterpret_cast<uint4*>(o + (((long long)b * S + qi) * Hq + h) * D +
-                                e) =
-          *reinterpret_cast<const uint4*>(stage + r * kLd + e);
   }
 }
 
@@ -540,22 +723,78 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime so that the
+// library links no libcuda of its own; null where it is missing
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The map of a contiguous bf16 (B, S, H, D) tensor as 4-d (D, H, S, B),
+// boxes of (64 values, 1 head, ``rows`` positions, 1 batch) in the 128B
+// swizzle; false if the encoding is refused
+bool bf16_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
+              int S, int H, int D, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * H * D, 2ull * S * H * D};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kPanel), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int S, int Skv, int Hq, int Hkv, int window, float scale,
                 cudaStream_t stream) {
-  // the q tile and two buffers each of the k and v tiles
-  constexpr int smem = sizeof(__nv_bfloat16) * (kBQ + 4 * kBK) * (D + 8);
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tq, tk, tv, to;
+  if (!bf16_map(enc, &tq, q, B, S, Hq, D, kWgRows) ||
+      !bf16_map(enc, &tk, k, B, Skv, Hkv, D, kTileK) ||
+      !bf16_map(enc, &tv, v, B, Skv, Hkv, D, kTileK) ||
+      !bf16_map(enc, &to, o, B, S, Hq, D, kWgRows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = Bf16Smem<D>::kAlloc;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_bf16_kernel<D>,
+      flash_attention_wgmma_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(Hq, B, (S + kBQ - 1) / kBQ);
-  flash_attention_bf16_kernel<D><<<grid, kBf16Threads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S,
-      Skv, Hq, Hkv, window, scale);
+  // two q heads of one kv head share each kv tile where the group is even
+  const int pair = (Hq / Hkv) % 2 == 0;
+  const int rows = pair ? kWgRows : 2 * kWgRows;
+  const int q_tiles = (S + rows - 1) / rows;
+  const int heads = pair ? Hq / 2 : Hq;
+  const int q_fast = 4ll * B * Skv * Hkv * D > kKvL2Bytes;
+  const dim3 grid = q_fast ? dim3(q_tiles, heads, B) : dim3(heads, B, q_tiles);
+  flash_attention_wgmma_kernel<D><<<grid, kBf16Threads, smem, stream>>>(
+      tq, tk, tv, to, S, Skv, Hq, Hkv, window, scale, pair, q_fast);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -325,7 +325,11 @@ class ShardingFallbacks(TorchDispatchMode):
       meta device no index is read);
     * any other in-place op DTensor cannot run in place runs through its
       out-of-place strategy, resharded to the input's placements
-      (``in_place_rewrites``; meta only).
+      (``in_place_rewrites``; meta only);
+    * an argmax over a sharded dim (the greedy token over a vocab split on
+      "model") that DTensor cannot run runs with that dim replicated, as
+      GSPMD gathers a reduced dim (``reshards``): torch 2.11's DTensor
+      gathers the per-rank maxima into a mis-sized result, 2.13's runs it.
     """
 
     _VIEWS = {torch.ops.aten.view.default, torch.ops.aten._unsafe_view.default}
@@ -362,6 +366,8 @@ class ShardingFallbacks(TorchDispatchMode):
                 return self._local_write(e, *args)
             if _out_of_place(func) is not None:
                 return self._in_place(e, func, args, kwargs)
+            if func == torch.ops.aten.argmax.default:
+                return self._reshard_reduced_dim(e, func, args, kwargs)
             raise
 
     def _reduce_pending(self, func, out):
@@ -393,6 +399,22 @@ class ShardingFallbacks(TorchDispatchMode):
             raise first
         self.partial_reductions += reduced
         return self._reduce_pending(func, func(*out, **kwargs))
+
+    def _reshard_reduced_dim(self, first, func, args, kwargs):
+        """``func`` (a reduction with a ``dim`` argument, or over every
+        dim when it is None) after the mesh dims that shard the reduced
+        dims are replicated."""
+        from torch.distributed.tensor import Replicate, Shard
+        x = args[0]
+        dim = args[1] if len(args) > 1 else kwargs.get("dim")
+        reduced = range(x.ndim) if dim is None else {dim % x.ndim}
+        placements = [Replicate() if isinstance(p, Shard) and p.dim in reduced
+                      else p for p in x.placements]
+        if placements == list(x.placements):
+            raise first
+        self.reshards += 1
+        y = x.redistribute(x.device_mesh, placements)
+        return self._reduce_pending(func, func(y, *args[1:], **kwargs))
 
     def _reshard_view(self, first, func, args, kwargs):
         from torch.distributed.tensor import Replicate, Shard

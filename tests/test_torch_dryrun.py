@@ -270,6 +270,40 @@ def test_a_one_by_one_mesh_moves_no_bytes():
         cfg, "train", 4, 64, mesh)
 
 
+@pytest.mark.parametrize("ranks,device", [(1, "cpu"), (4, "meta")],
+                         ids=["one_rank_values", "four_ranks_meta"])
+def test_an_argmax_over_a_sharded_vocab_runs_replicated(ranks, device):
+    """The fallback for an argmax DTensor cannot run over a sharded dim
+    (torch 2.11's, over the vocab split on "model"), called directly: the
+    reduced dim is replicated, the result is the unsharded argmax (values
+    on one rank, the shape and placements on a fake 4-rank world's meta
+    tensors), counted once under ``reshards``; over a dim that is not
+    sharded the op's own error stands."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.launch.mesh import mesh_over
+    argmax = torch.ops.aten.argmax.default
+    logits = torch.randn((2, 3, 64), generator=torch.Generator().manual_seed(0))
+    with dryrun.fake_world(ranks):
+        mesh = mesh_over((1, ranks), ("data", "model"), device="cpu")
+        local = logits.chunk(ranks, dim=2)[0].to(device)
+        x = DTensor.from_local(local, mesh, [Replicate(), Shard(2)],
+                               shape=logits.shape, stride=logits.stride())
+        mode = dryrun.ShardingFallbacks()
+        stand_in = RuntimeError("the op's own error")
+        out = mode._reshard_reduced_dim(stand_in, argmax, (x, -1), {})
+        assert mode.counts() == {**dict.fromkeys(mode.counts(), 0),
+                                 "reshards": 1}
+        assert out.shape == (2, 3) and all(
+            isinstance(p, Replicate) for p in out.placements)
+        if device == "cpu":
+            assert torch.equal(out.full_tensor(), logits.argmax(-1))
+        with pytest.raises(RuntimeError, match="own error"):
+            mode._reshard_reduced_dim(stand_in, argmax, (x, 0), {})
+        assert mode.reshards == 1
+    assert not dist.is_initialized()
+
+
 def test_a_pallas_config_is_refused_and_the_world_torn_down():
     cfg = get_smoke_config("smollm-135m").replace(attn_backend="pallas")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -91,7 +91,13 @@ CUDA_SHAPES = [dict(B=2, S=256, Hq=9, Hkv=3, D=64, window=None),
                dict(B=1, S=192, Hq=8, Hkv=2, D=128, window=None),
                dict(B=1, S=1000, Hq=9, Hkv=3, D=64, window=None),
                dict(B=1, S=700, Hq=4, Hkv=1, D=128, window=100),
-               dict(B=2, S=130, Hq=2, Hkv=2, D=64, window=5)]
+               dict(B=2, S=130, Hq=2, Hkv=2, D=64, window=5),
+               # the wgmma route's paths: granite's 48 q heads over one kv
+               # head at D = 128 (pairs of heads share each kv tile), 8
+               # over 1, and a window whose edge falls inside a 128-key tile
+               dict(B=1, S=320, Hq=48, Hkv=1, D=128, window=None),
+               dict(B=2, S=384, Hq=8, Hkv=1, D=64, window=None),
+               dict(B=1, S=640, Hq=4, Hkv=2, D=128, window=200)]
 
 
 @pytest.mark.cuda

@@ -7,9 +7,12 @@ the bf16 operands each route feeds its tensor cores fit the limits the
 kernels are held to on the card (``chip_smoke.py``'s ``FA_TOL`` and
 ``SSD_TOL``, the reference's own, ``tests/test_kernels.py``):
 
-- K4 rounds P to bf16 for its product with V, per kv tile of 64 keys
-  against that tile's running max, and sums l from the same rounded P; the
-  scores, l and the accumulator stay float32. Held at 2e-2 absolute.
+- K4 rounds P to bf16 for its product with V, per kv tile of keys (128
+  in the wgmma route, 64 in the mma.sync route it replaced) against that
+  tile's running max, and sums l from the same rounded P; the scores, l
+  and the accumulator stay float32. Held at 2e-2 absolute. Each block of
+  q rows walks only the kv tiles from its window's first live tile
+  (``kt_begin``) to its diagonal; skipping the others changes no bit.
 - K5 rounds three operands to bf16: (C B^T .* L) * dt (dt folded into the
   score), x * exp(dA_cum[Q-1] - dA_cum) * dt for the state update, and the
   bf16 copy of h that C h^T reads; products of bf16 inputs are exact in
@@ -48,11 +51,14 @@ BF16 = torch.bfloat16
 F32 = torch.float32
 
 
-def fa_tc_emulation(q, k, v, *, window=None, tile=64):
+def fa_tc_emulation(q, k, v, *, window=None, tile=64, q_block=None):
     """K4's bf16 route: float32 scores of bf16 inputs, scaled after the dot,
     the -1e30 masks, an online softmax over kv tiles of ``tile`` keys with
     P rounded to bf16 against each tile's running max and l summed from the
-    rounded P, and the output rounded to bf16 once."""
+    rounded P, and the output rounded to bf16 once. With ``q_block``, each
+    block of that many positions walks only the kernel's tiles: from
+    ``kt_begin``, the tile holding its first row's first live key, to the
+    tile holding its last row; else every row walks every tile."""
     S, Hq, D = q.shape[1], q.shape[2], q.shape[3]
     Skv, Hkv = k.shape[1], k.shape[2]
     group = Hq // Hkv
@@ -65,21 +71,31 @@ def fa_tc_emulation(q, k, v, *, window=None, tile=64):
     if window is not None:
         live = live & (qp - kp < window)
     s_all = torch.where(live, s_all, NEG_INF)
-    m = torch.full(s_all.shape[:-1], NEG_INF)
-    l = torch.zeros(s_all.shape[:-1])
-    acc = torch.zeros(s_all.shape[:-1] + (D,))
-    for k0 in range(0, Skv, tile):
-        s = s_all[..., k0:k0 + tile]
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        dead = (m_new <= NEG_INF / 2)[..., None]
-        p = torch.where(dead, 0.0, torch.exp(s - m_new[..., None]))
-        p = p.to(BF16).to(F32)
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bhqk,bkhd->bhqd", p, vf[:, k0:k0 + tile])
-        m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    blocks = [(0, S, 0, Skv)]
+    if q_block is not None:
+        blocks = []
+        for q0 in range(0, S, q_block):
+            first = max(0, q0 - (window - 1)) if window is not None else 0
+            blocks.append((q0, min(S, q0 + q_block), first // tile * tile,
+                           min(Skv, -(-(q0 + q_block) // tile) * tile)))
+    out = torch.empty(s_all.shape[:-1] + (D,))
+    for r0, r1, k_lo, k_hi in blocks:
+        rows = s_all[..., r0:r1, :]
+        m = torch.full(rows.shape[:-1], NEG_INF)
+        l = torch.zeros(rows.shape[:-1])
+        acc = torch.zeros(rows.shape[:-1] + (D,))
+        for k0 in range(k_lo, k_hi, tile):
+            s = rows[..., k0:min(k0 + tile, k_hi)]
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            dead = (m_new <= NEG_INF / 2)[..., None]
+            p = torch.where(dead, 0.0, torch.exp(s - m_new[..., None]))
+            p = p.to(BF16).to(F32)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p, vf[:, k0:k0 + s.shape[-1]])
+            m = m_new
+        out[..., r0:r1, :] = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)
 
 
@@ -159,6 +175,62 @@ def test_fa_bf16_rounding_fits_the_tolerance(B, S, Hq, Hkv, D, win, blk):
     plain = attention_reference(tq, tk, tv, window=win)
     torch.testing.assert_close(got.to(F32), plain.to(F32), rtol=0,
                                atol=FA_TOL)
+
+
+# the wgmma route's 128-key tiles: GQA groups of 1, 3, 8 and 48 (the two
+# consumers of a block take two heads of one kv head where the group is
+# even, 128 positions of one head where it is 1 or odd), ragged S, and a
+# window that starts inside a 128-key tile
+FA_TILE128_CASES = [
+    # B, S, Hq, Hkv, D, window, blk (the JAX kernel's block)
+    (1, 256, 2, 2, 64, None, 64),     # group 1
+    (1, 300, 9, 3, 64, None, 64),     # group 3 (smollm's), ragged S
+    (1, 256, 8, 1, 64, None, 64),     # group 8
+    (1, 192, 48, 1, 128, None, 64),   # group 48 (granite's), D = 128
+    (1, 200, 4, 1, 128, None, 64),    # ragged S, D = 128
+    (1, 384, 4, 2, 64, 100, 64),      # window edge inside a 128-key tile
+    (1, 330, 2, 1, 128, 150, 64),     # the same, D = 128, ragged S
+]
+
+
+def _fa_jax(q, k, v, win, blk):
+    return np.asarray(jax_flash(jnp.asarray(q, jnp.bfloat16),
+                                jnp.asarray(k, jnp.bfloat16),
+                                jnp.asarray(v, jnp.bfloat16), causal=True,
+                                window=win, blk_q=blk, blk_k=blk,
+                                interpret=True), np.float32)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,win,blk", FA_TILE128_CASES)
+def test_fa_bf16_rounding_fits_the_tolerance_tile128(B, S, Hq, Hkv, D, win,
+                                                     blk):
+    q, k, v = fa_operands(B, S, Hq, Hkv, D, seed=S * 5 + Hq)
+    want = _fa_jax(q, k, v, win, blk)
+    tq, tk, tv = (torch.from_numpy(a).to(BF16) for a in (q, k, v))
+    got = fa_tc_emulation(tq, tk, tv, window=win, tile=128)
+    assert got.dtype == BF16 and got.shape == (B, S, Hq, D)
+    np.testing.assert_allclose(got.to(F32).numpy(), want, rtol=0,
+                               atol=FA_TOL)
+    plain = attention_reference(tq, tk, tv, window=win)
+    torch.testing.assert_close(got.to(F32), plain.to(F32), rtol=0,
+                               atol=FA_TOL)
+
+
+@pytest.mark.parametrize("q_block", [64, 128], ids=["pair", "rows"])
+@pytest.mark.parametrize("S,win", [(512, 100), (700, 200), (384, None)])
+def test_fa_walk_from_kt_begin_changes_nothing(S, win, q_block):
+    """Each block of q rows (64 positions of two heads, or 128 of one)
+    walks 128-key tiles from its ``kt_begin`` to its diagonal: the same
+    bits as walking every tile, and within the tolerance of the JAX
+    kernel."""
+    q, k, v = fa_operands(1, S, 4, 2, 64, seed=S + q_block)
+    tq, tk, tv = (torch.from_numpy(a).to(BF16) for a in (q, k, v))
+    walked = fa_tc_emulation(tq, tk, tv, window=win, tile=128,
+                             q_block=q_block)
+    every = fa_tc_emulation(tq, tk, tv, window=win, tile=128)
+    assert torch.equal(walked, every)
+    np.testing.assert_allclose(walked.to(F32).numpy(),
+                               _fa_jax(q, k, v, win, 64), rtol=0, atol=FA_TOL)
 
 
 def test_fa_emulation_rounds_p_and_sums_l_from_it():
