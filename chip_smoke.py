@@ -10,13 +10,12 @@ port's entry points:
   1. device     the card's name and power limit (nvidia-smi)
   2. build      nvcc builds the kernel libraries from csrc/*.cu (sim_step,
                 contention, flash_attention, ssd_scan), one nvcc each,
-                started together; the SASS of K4's bf16 kernel must hold
-                wgmma (HGMMA) and TMA loads (UTMALDG) and no mma.sync
-                (HMMA), and ptxas must report no spill in it; K5's bf16
-                kernel must hold tensor-core instructions (HMMA/HGMMA)
-                and asynchronous copies (LDGSTS/UTMALDG); every K1 and K3
-                instance's registers, shared memory and spills (ptxas),
-                and no spill in any of them
+                started together; the SASS of K4's and K5's bf16 kernels
+                must hold wgmma (HGMMA) and TMA loads (UTMALDG) and no
+                mma.sync (HMMA) in every instance, and ptxas must report
+                no spill in them; every K1 and K3 instance's registers,
+                shared memory and spills (ptxas), and no spill in any of
+                them
   3. parity     the sim kernels (K1, K2) against their plain PyTorch
                 version on the same CUDA tensors, bitwise, at the main
                 path's shapes (1 env for the probes, 32 for training, 4096
@@ -64,9 +63,11 @@ port's entry points:
  12. ssd scan   the SSD chunked-scan kernel against its plain version at
                 mamba2-1.3b's prefill shape (bf16 and float32), a ragged S,
                 zamba2-1.2b's mixer shape and a grouped shape; y and final
-                state errors, kernel, device, plain and bound times, and at
-                each bf16 shape the first design's (the float32 route),
-                which the bf16 kernel must beat at the path's shape
+                state errors, kernel, device (the median of at least 20
+                profiler samples, with their least and most), plain and
+                bound times, and at each bf16 shape the first design's
+                (the float32 route), which the bf16 kernel must beat at
+                the path's shape
  13. mamba2     repro_torch.launch.serve at the full mamba2-1.3b config (8
                 prompts of 1024 tokens, 32 greedy tokens each): the scan
                 kernel launched once per layer in the prefill and never in
@@ -561,7 +562,7 @@ TRAIN_K1_CALL = 1 + 100 + 2 * 11 + 5
 # device kernel names: every kernel of a library carries its prefix (the
 # float32 and bf16 routes alike); the main paths run the bf16 kernels
 FA_PREFIX, FA_PATH_KERNEL = "flash_attention_", "flash_attention_wgmma_kernel"
-SSD_PREFIX, SSD_PATH_KERNEL = "ssd_scan_", "ssd_scan_bf16_kernel"
+SSD_PREFIX, SSD_PATH_KERNEL = "ssd_scan_", "ssd_scan_wgmma_kernel"
 
 
 SHARD_RANKS = 2              # phase 26: ranks sharing the one card over gloo
@@ -608,38 +609,54 @@ def time_ms(torch, fn, *, samples=20, inner=20, warmup=5):
     return float(np.median(times))
 
 
-def device_ms(torch, fn, kernel_prefix, n=20):
-    """The device time of one ``fn()`` call from torch.profiler, over ``n``
-    calls: each device kernel whose name carries ``kernel_prefix`` adds its
-    time per recorded launch, so a kernel split into parts (one launch of
-    each per call), or named apart by its template, counts whole. Per
-    recorded launch, not per call: late in this script's run the profiler
-    drops the first launches of a window (7 of 10 recorded, on an H100),
-    and a sum over calls would count the dropped ones as free. A window
-    late in the run can come back with no device time at all: each such
-    window is printed, counted in ``PROFILER_WINDOWS`` and followed by
-    another, up to three; None where all three came back empty."""
+def device_spread(torch, fn, kernel_prefix, n=20):
+    """The device time of one ``fn()`` call from torch.profiler: its median,
+    least and most over the recorded launches, and their number. Each
+    device kernel whose name carries ``kernel_prefix`` gives one sample per
+    recorded launch, and a call's time sums over those names, so a kernel
+    split into parts (one launch of each per call), or named apart by its
+    template, counts whole. Windows of ``n`` calls are recorded until every
+    such kernel has ``n`` samples, up to three: late in this script's run
+    the profiler drops the first launches of a window (7 of 10 recorded, on
+    an H100), and a window can come back with no device time at all (each
+    such window is printed and counted in ``PROFILER_WINDOWS``). None where
+    all three came back empty; ``samples`` below ``n`` where the three
+    recorded fewer."""
     from torch.profiler import profile, ProfilerActivity
     PROFILER_WINDOWS["calls"] += 1
+    ms = {}
     for window in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        per_call = sum(evt.device_time_total / evt.count
-                       for evt in prof.key_averages()
-                       if kernel_prefix in evt.key and evt.count
-                       and evt.device_time_total)
-        if per_call:
-            return per_call / 1e3
-        PROFILER_WINDOWS["empty"] += 1
-        print(f"[profiler] {kernel_prefix}: window {window + 1} of 3 "
-              f"recorded no device time")
-    return None
+        got = [(evt.name, evt.device_time_total / 1e3)
+               for evt in prof.events() if kernel_prefix in evt.name
+               and evt.device_type == torch.autograd.DeviceType.CUDA]
+        for name, t in got:
+            ms.setdefault(name, []).append(t)
+        if not got:
+            PROFILER_WINDOWS["empty"] += 1
+            print(f"[profiler] {kernel_prefix}: window {window + 1} of 3 "
+                  f"recorded no device time")
+        elif min(map(len, ms.values())) >= n:
+            break
+    if not ms:
+        return None
+    return {"median": sum(float(np.median(v)) for v in ms.values()),
+            "min": sum(map(min, ms.values())),
+            "max": sum(map(max, ms.values())),
+            "samples": min(map(len, ms.values()))}
 
 
-# device_ms's profiler windows over the run: calls, and windows that came
-# back with no device time
+def device_ms(torch, fn, kernel_prefix, n=20):
+    """``device_spread``'s median, or None."""
+    spread = device_spread(torch, fn, kernel_prefix, n)
+    return spread and spread["median"]
+
+
+# device_spread's profiler windows over the run: calls, and windows that
+# came back with no device time
 PROFILER_WINDOWS = {"calls": 0, "empty": 0}
 
 
@@ -1531,10 +1548,16 @@ def ssd_row(torch, name, args, *, first_design=False):
                max_abs_err_state=err_state, tol_ratio=ratio,
                max_abs_y=float(want_y.float().abs().max()),
                ms=time_ms(torch, kern, samples=10, inner=10),
-               device_ms=device_ms(torch, kern, SSD_PREFIX, n=10),
                plain_ms=time_ms(torch, plain, samples=5, inner=3, warmup=1),
                library_ms=None, bound_ms=b_ms, bound_by=b_by,
                bound_terms=terms)
+    # the device time: the median of at least 20 profiler samples, with
+    # their spread
+    spread = device_spread(torch, kern, SSD_PREFIX)
+    row.update(device_ms=spread and spread["median"],
+               device_ms_min=spread and spread["min"],
+               device_ms_max=spread and spread["max"],
+               device_samples=spread and spread["samples"])
     if first_design and dtype == "bfloat16":
         # the first design, which the float32 route keeps, on the same
         # inputs with x, B, C in float32
@@ -1542,12 +1565,13 @@ def ssd_row(torch, name, args, *, first_design=False):
         first = lambda: ops.ssd_scan(*args32, chunk=SSD_CHUNK,
                                      return_state=True)
         row.update(first_design_ms=time_ms(torch, first, samples=5, inner=5),
-                   first_design_device_ms=device_ms(torch, first, SSD_PREFIX,
-                                                    n=5))
+                   first_design_device_ms=device_ms(torch, first, SSD_PREFIX))
     print(f"[ssd] {name} b={b} s={s} h={h} p={p} g={g} n={n} {dtype}: "
           f"y max_abs_err={err_y:.3g} (|y| max {row['max_abs_y']:.3g}), "
           f"state max_abs_err={err_state:.3g}, {ratio:.3g} of the "
           f"tolerance; ms={row['ms']} device_ms={row['device_ms']} "
+          f"(median of {row['device_samples']}, {row['device_ms_min']}-"
+          f"{row['device_ms_max']}) "
           f"first_design_device_ms={row.get('first_design_device_ms')} "
           f"plain_ms={row['plain_ms']} bound_ms={b_ms:.4g} ({b_by}; "
           f"{json.dumps(terms)}) library_ms=null; kernel/bound "
@@ -4806,9 +4830,8 @@ def main():
                    if r["spill_stores"] or r["spill_loads"]]
         if spilled:
             fail(f"{name}: registers spilled in {spilled}")
-    # the bf16 routes of K4 and K5 run on the tensor cores and copy into
-    # shared memory asynchronously: count both in the built SASS. K4's is
-    # the wgmma route: HGMMA and UTMALDG, no HMMA, and no spill
+    # the bf16 routes of K4 and K5 are wgmma routes fed by TMA: count both
+    # in the built SASS (HGMMA and UTMALDG, no HMMA), and no spill
     sass = {}
     for name, kernel in (("flash_attention", FA_PATH_KERNEL),
                          ("ssd_scan", SSD_PATH_KERNEL)):
@@ -4823,31 +4846,24 @@ def main():
         print(f"[sass] {name}: {kernel}: {json.dumps(sass[name])}")
         if not path:
             fail(f"no {kernel} in lib{name}")
-        if name == "flash_attention":
-            bad = {fn: c for fn, c in path.items()
-                   if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"]}
-            if bad:
-                fail(f"{kernel} is not the wgmma/TMA route in some "
-                     f"instance (HGMMA > 0, UTMALDG > 0, HMMA = 0 wanted): "
-                     f"{json.dumps(bad)}")
-            rows = [r for r in ptxas_report(build.nvcc_output(name))
-                    if kernel in r["function"]]
-            for r in rows:
-                print(f"[ptxas] {name}: {r['function']}: {r['registers']} "
-                      f"registers, {r['smem_bytes']} bytes smem, spill "
-                      f"stores {r['spill_stores']}, loads "
-                      f"{r['spill_loads']}")
-            if not rows:
-                fail(f"no ptxas report for {kernel}: was it built in this "
-                     f"run?")
-            spilled = [r["function"] for r in rows
-                       if r["spill_stores"] or r["spill_loads"]]
-            if spilled:
-                fail(f"{name}: registers spilled in {spilled}")
-        elif min(min(c["HMMA"] + c["HGMMA"], c["LDGSTS"] + c["UTMALDG"])
-                 for c in path.values()) == 0:
-            fail(f"{kernel} in lib{name} has no tensor-core instruction or "
-                 f"no asynchronous copy in some instance: {json.dumps(path)}")
+        bad = {fn: c for fn, c in path.items()
+               if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"]}
+        if bad:
+            fail(f"{kernel} is not the wgmma/TMA route in some instance "
+                 f"(HGMMA > 0, UTMALDG > 0, HMMA = 0 wanted): "
+                 f"{json.dumps(bad)}")
+        rows = [r for r in ptxas_report(build.nvcc_output(name))
+                if kernel in r["function"]]
+        for r in rows:
+            print(f"[ptxas] {name}: {r['function']}: {r['registers']} "
+                  f"registers, {r['smem_bytes']} bytes smem, spill stores "
+                  f"{r['spill_stores']}, loads {r['spill_loads']}")
+        if not rows:
+            fail(f"no ptxas report for {kernel}: was it built in this run?")
+        spilled = [r["function"] for r in rows
+                   if r["spill_stores"] or r["spill_loads"]]
+        if spilled:
+            fail(f"{name}: registers spilled in {spilled}")
     lap(2)
 
     # --- 3. kernel parity and times ------------------------------------------
@@ -5043,7 +5059,7 @@ def main():
     lap(27)
     print(f"[wall] per phase s {json.dumps(walls)}; total "
           f"{sum(walls.values()):.2f} s")
-    print(f"[profiler] device_ms windows: {PROFILER_WINDOWS['calls']} "
+    print(f"[profiler] device_spread windows: {PROFILER_WINDOWS['calls']} "
           f"calls, {PROFILER_WINDOWS['empty']} windows empty")
 
     kernels = []
@@ -5183,9 +5199,10 @@ def main():
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": None,
         **{k: row[k] for k in ("b", "s", "h", "p", "g", "n", "chunk",
-                               "dtype", "device_ms", "first_design_ms",
-                               "first_design_device_ms", "max_abs_err_state",
-                               "bound_terms")},
+                               "dtype", "device_ms", "device_ms_min",
+                               "device_ms_max", "device_samples",
+                               "first_design_ms", "first_design_device_ms",
+                               "max_abs_err_state", "bound_terms")},
         "sass": sass["ssd_scan"],
     })
     for name, r in k5.items():

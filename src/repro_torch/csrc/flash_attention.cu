@@ -89,10 +89,7 @@
 //
 // No atomics in either route: the result does not change between runs.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -301,151 +298,6 @@ struct Bf16Smem {
   static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages);
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// one arrival that also expects ``bytes`` of TMA transfers this phase
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// until the phase of parity ``parity`` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// a box of the 4-d tensor map (D, H, S, B) at (d0, h, s0, b) into shared
-// memory; reads past S come back as zeros and still count their bytes
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d0, int h, int s0,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(h),
-      "r"(s0), "r"(b)
-      : "memory");
-}
-
-// a box from shared memory to the map at (d0, h, s0, b); rows past S are
-// not written
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
-                                          int d0, int h, int s0, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(d0), "r"(h), "r"(s0), "r"(b)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor for a 128B-swizzled operand: the start
-// address, the leading and stride byte offsets (16-byte units) and the
-// layout type 1 (128B swizzle) in bits 62-63. K-major (q, k): a row of 64
-// values is one 128-byte span, 8 rows are an atom of 1024 bytes (stride
-// offset), and a k16 step inside the span advances the start by 32 bytes.
-// MN-major (v): the leading offset steps 64 values along N (the next
-// panel), the stride offset 8 rows along K.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-#define WG_ACC8(i)                                                      \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_REGS32                                                       \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
-  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
-  "%28, %29, %30, %31"
-#define WG_REGS64                                                       \
-  WG_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
-            "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "   \
-            "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-
-// d (64 x 128, f32) = a b^T (+ d when accumulate): a 64 x 16 and b 128 x 16,
-// both bf16 K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{" WG_REGS64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24), WG_ACC8(32),
-        WG_ACC8(40), WG_ACC8(48), WG_ACC8(56)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x N, f32) += a b: a 64 x 16 bf16 in registers (4 per thread, the
-// accumulator's layout), b 16 x N bf16 MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{" WG_REGS32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{" WG_REGS64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24), WG_ACC8(32),
-        WG_ACC8(40), WG_ACC8(48), WG_ACC8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef WG_ACC8
-#undef WG_REGS32
-#undef WG_REGS64
-
-// two floats rounded to nearest even into one bf16 pair (lo in the low half)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // the sum of a bf16 pair, exactly as the rounded values
 __device__ __forceinline__ float bf16x2_sum(uint32_t x) {
@@ -723,33 +575,6 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime so that the
-// library links no libcuda of its own; null where it is missing
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The map of a contiguous bf16 (B, S, H, D) tensor as 4-d (D, H, S, B),
 // boxes of (64 values, 1 head, ``rows`` positions, 1 batch) in the 128B
 // swizzle; false if the encoding is refused
@@ -762,11 +587,7 @@ bool bf16_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
   const cuuint64_t strides[3] = {2ull * D, 2ull * H * D, 2ull * S * H * D};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(kPanel), 1,
                              static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return bf16_map_4d(enc, map, ptr, dims, strides, box);
 }
 
 template <int D>

@@ -36,46 +36,75 @@
 // (chip_smoke.py::ssd_bound).
 //
 // Both routes are one pass: the chunk axis is sequential (the TPU's
-// innermost "arbitrary" grid axis), here a loop inside the block, and one
-// block of 256 threads owns one (batch, head) walk. A two-pass design (chunk
-// states in parallel, then a scan) would write and read the (B, chunks, H,
-// P, N) float32 chunk states, 134 MB at the path's shape, more than the
-// bound's bytes. dtype picks the route in ssd_scan_launch.
+// innermost "arbitrary" grid axis), here a loop inside the block. A
+// two-pass design (chunk states in parallel, then a scan) would write and
+// read the (B, chunks, H, P, N) float32 chunk states, 134 MB at the path's
+// shape, more than the bound's bytes. dtype picks the route in
+// ssd_scan_launch.
 //
-// bf16 (the serving path): ssd_scan_bf16_kernel, on the tensor cores. The
-// chunk's x (128 x 64), B and C (128 x N) tiles and its dt come into shared
-// memory in bf16 by cp.async, read in place from strided views (16-byte
-// copies, 8-byte where a stride is only 8-byte aligned): C's copy for the
-// next chunk is in flight during this chunk's state update, x's, B's and
-// dt's during the h write-back and, with 2 blocks resident per SM at
-// N <= 128 (112 KB of shared memory and at most 128 registers a thread),
-// during the other block's products. Rows are padded by 16 bytes so
-// ldmatrix is free of bank conflicts. Warp 0 scans dA = dt * A in float32.
-// Warp w owns the rows r0 = 16w .. 16w+15 of y:
-//   - C h^T: A fragments of C by ldmatrix, h^T from a bf16 copy of h in
-//     shared memory; scaled by exp(dA_cum) in registers;
-//   - C B^T on the lower triangle only (16-key tiles above the warp's rows
-//     are skipped), in blocks of 32 keys held in registers; the masked
-//     C B^T .* L * dt is rounded to bf16 in registers, where it is the A
-//     fragment of the product with x (read by ldmatrix.trans). Folding dt
-//     into the score leaves one rounding where (C B^T .* L) and x * dt
-//     would take two. Below the diagonal tile, L is factored around r0,
-//     exp(cum[i] - cum[r0]) * exp(cum[r0] - cum[j]), both factors at most 1
-//     (no overflow), the key factors times dt shared in shared memory; the
-//     diagonal tile takes exp(cum[i] - cum[j]) itself and an exact 0 above
-//     the diagonal.
-// The state h (64 x N) lives in registers as float32 accumulators: warp w
-// owns p rows 16 (w % 4) .. +15 and half of n; h <- h * exp(dA_cum[Q-1]) +
-// (x * w)^T B with w = exp(dA_cum[Q-1] - dA_cum) * dt, the A fragments of
-// x^T by ldmatrix.trans scaled by w and rounded to bf16 in registers (the
-// decay is folded into x, 64 wide, rather than into B, N wide: the same one
-// rounding of a product), B^T by ldmatrix.trans. After the update each warp
-// writes its part of h as bf16 for the next chunk's C h^T. Every product is
-// mma.sync.m16n8k16 bf16 -> f32. The roundings to bf16 are those three
-// derived operands (C B^T .* L * dt, x * w, h's copy); C, B and x are bf16
-// already, so their products are exact in float32, and h stays float32.
-// Warps are unevenly loaded (warp 7's rows see 8 key tiles, warp 0's one);
-// the other resident block fills the gaps.
+// bf16 (the serving path): ssd_scan_wgmma_kernel, on Hopper's warpgroup
+// tensor-core instructions. One block of three warpgroups walks one head
+// of one batch row, one block per SM; the blocks of one (batch, group) are
+// next to each other on the grid and read B and C while L2 holds them.
+//   - Warpgroup 0 is the producer (setmaxnreg.dec): one thread issues TMA
+//     boxes (tensor maps on the tensors as they lie, 4-d, the 128B
+//     swizzle, built on each call in the C entry) into two rings with full
+//     and empty mbarriers: a ring of 2 chunk stages (the head's x tile,
+//     128 x 64) and a ring of 2-4 slab stages (B and C, 128 positions x 64
+//     state columns, so that N = 256 fits and N = 32 reads one half-empty
+//     slab: columns past N and rows past S come back as zeros). dt is 4
+//     bytes a head, below TMA's 16-byte box: the producer warp loads it by
+//     plain loads a chunk ahead and scans dA = dt * A into the chunk stage
+//     (cum, dt, w = exp(cum[Q-1] - cum) * dt, exp(cum)), so no consumer
+//     waits on a scan. A view whose rows are only 8-byte aligned, which
+//     TMA cannot take, is copied by 8-byte cp.async from the producer's 128
+//     threads into the same swizzled layout (each thread waits for its
+//     copies and fences them to the async proxy before it arrives).
+//   - Warpgroups 1 and 2 are the consumers (setmaxnreg.inc), rows 0-63 and
+//     64-127 of each chunk. Per slab, with both operands read from shared
+//     memory through descriptors: S += C B^T on the lower triangle by
+//     blocks of 64 (keys 0-63, or 0-127); y += C h^T from h's bf16 copy; and
+//     the update of the state h (64 x N, float32 in registers) by the
+//     consumer that holds it, h = h exp(cum[Q-1]) + (x w)^T B, with (x w)^T
+//     as the register A operand (ldmatrix.trans from the swizzled x tile,
+//     scaled by w and rounded to bf16: the decay is folded into x, 64 wide,
+//     not into B, N wide) and B MN-major. One slab's products are in
+//     flight while the next slab's are issued. Then y = y exp(cum) +
+//     bf16(S .* L * dt) x, the masked scores the register A operand and x
+//     MN-major. L keeps an exact 0 above the diagonal; below each warp's
+//     diagonal 16-row tile it is factored around the tile's first row r0,
+//     exp(cum[i] - cum[r0]) * exp(cum[r0] - cum[j]), both at most 1 (no
+//     overflow), the key factors times dt in the warp's row of shared
+//     memory. y goes through a swizzled tile per consumer to a TMA store,
+//     which clips rows past S.
+//   - The work is split so that the two consumers' is near even: with N up
+//     to 128 consumer 0 holds h (at mamba2's shape 4.7 MFLOP a chunk for
+//     rows 0-63 and the state update, 4.2 for rows 64-127); above 128 the
+//     two split h's slabs (one warpgroup's registers do not hold 64 x 256
+//     floats beside the rest). A holder hands its part of h over as soon as
+//     it is updated: the bf16 copy goes into one of two buffers (by the
+//     chunk's parity) behind a full barrier, and the other consumer's empty
+//     barrier says when it may be written again. That hand-over is the only
+//     wait of one consumer on the other.
+//   - No instruction but a wgmma writes an accumulator while products are
+//     in flight, which would make ptxas serialize every wgmma: first
+//     products overwrite (scale-d 0) instead of zeroed registers, and h's
+//     decay is applied by volatile multiplies before a chunk's first issue.
+// The roundings to bf16 are three derived operands (S .* L * dt, x * w and
+// h's copy); C, B and x are bf16 already, so their products are exact in
+// float32, every sum is float32 and h stays float32.
+//
+// What this does about the mma.sync route it replaced (0.2686 ms at
+// mamba2's shape on an H100): the two consumers take the triangle and the
+// state update in near-even parts where warp w of 8 took w + 1 tiles;
+// every copy is the TMA's (one thread, no address arithmetic), the next
+// chunk's tiles landing while this one computes; the dA scan is the
+// producer's; the tensor cores read shared memory themselves (only the
+// state update's x fragments pass through ldmatrix), with no mma.sync and
+// no cp.async on the path's views. Two heads of a group a block, sharing
+// C B^T and the B and C loads, measured slower at the paths' shapes (they
+// halve the blocks that fill the SMs; PERF.md, section 6), so a block
+// walks one head.
 //
 // float32 (the first design, kept for the 1e-4 parity that rules out TF32):
 // ssd_scan_f32_kernel, scalar float32 FMAs from shared memory with
@@ -90,9 +119,7 @@
 //
 // No atomics in either route: the result does not change between runs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -323,400 +350,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16 route: tensor cores (mma.sync) and cp.async
-// ---------------------------------------------------------------------------
-
-constexpr int kXld = kP + 8;  // padded row of the x tile, in elements
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16, 8 or 4 bytes from global to shared memory, asynchronously; zeros
-// where !valid (src is then not read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 8 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a b: a 16 x 16 bf16 (4 regs), b 16 x 8 bf16 (2 regs), c 16 x 8 f32
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to nearest even into one bf16 pair (lo in the low half)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// a bf16 pair times two floats, rounded back to a bf16 pair
-__device__ __forceinline__ uint32_t scale_bf16(uint32_t u, float2 w) {
-  const float2 f =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-  return pack_bf16(f.x * w.x, f.y * w.y);
-}
-
-// kNMax: the largest N the instance takes (64, 128 or 256); it sizes the
-// registers that hold this warp's part of h.
-template <int kNMax>
-__global__ void __launch_bounds__(kThreads, kNMax <= 128 ? 2 : 1)
-    ssd_scan_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                         const float* __restrict__ dt,
-                         const float* __restrict__ A,
-                         const __nv_bfloat16* __restrict__ Bm,
-                         const __nv_bfloat16* __restrict__ Cm,
-                         __nv_bfloat16* __restrict__ y,
-                         float* __restrict__ state_out, int S, int H, int G,
-                         int N, long long x_sb, long long x_ss,
-                         long long b_sb, long long b_ss, long long c_sb,
-                         long long c_ss, int vec16) {
-  constexpr int kHTiles = kNMax / 16;  // n-tiles of 8 in a warp's half of h
-  const int ld = N + 8;                // padded row of the B, C, h tiles
-  extern __shared__ uint4 smem_bf16[];
-  __nv_bfloat16* Cs = reinterpret_cast<__nv_bfloat16*>(smem_bf16);  // kQ x ld
-  __nv_bfloat16* Bs = Cs + kQ * ld;                                  // kQ x ld
-  __nv_bfloat16* Xs = Bs + kQ * ld;                                  // kQ x kXld
-  __nv_bfloat16* Hb = Xs + kQ * kXld;  // kP x ld: h entering the chunk
-  float* dts = reinterpret_cast<float*>(Hb + kP * ld);  // kQ: dt
-  float* cum = dts + kQ;                                // kQ: dA_cum
-  float* wst = cum + kQ;   // kQ: exp(cum[Q-1] - cum) * dt
-  float* ecum = wst + kQ;  // kQ: exp(cum)
-  float* kdec = ecum + kQ;  // 8 x kQ: row w exp(cum[16 w] - cum[j]) * dt[j]
-
-  const int hh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int grp = hh / (H / G);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;   // the fragment's row within 8
-  const int tq = lane % 4;  // the fragment's column pair
-  const float a = A[hh];
-
-  const __nv_bfloat16* xb = x + b * x_sb + (long long)hh * kP;
-  const float* dtb = dt + (long long)b * S * H + hh;
-  const __nv_bfloat16* bb = Bm + b * b_sb + (long long)grp * N;
-  const __nv_bfloat16* cb = Cm + b * c_sb + (long long)grp * N;
-  __nv_bfloat16* yb = y + ((long long)b * S * H + hh) * kP;
-
-  // rows t0 .. t0 + 127 of a (S, cols) view into a tile with rows tld
-  // elements apart, zeros at or past ``rows``: 16-byte copies, or 8-byte
-  // ones where a stride or a base is only 8-byte aligned
-  auto load_rows = [&](__nv_bfloat16* tile, int tld,
-                       const __nv_bfloat16* base, long long row_stride,
-                       int cols, int t0, int rows) {
-    const int vec = vec16 ? 8 : 4;
-    const int per_row = cols / vec;
-    for (int c = tid; c < kQ * per_row; c += kThreads) {
-      const int r = c / per_row;
-      const int e = (c % per_row) * vec;
-      const bool ok = r < rows;
-      const __nv_bfloat16* src = ok ? base + (t0 + r) * row_stride + e : base;
-      if (vec16)
-        cp_async16(smem_addr(tile + r * tld + e), src, ok);
-      else
-        cp_async8(smem_addr(tile + r * tld + e), src, ok);
-    }
-  };
-  auto load_dt = [&](int t0, int rows) {
-    if (tid < kQ)
-      cp_async4(smem_addr(dts + tid),
-                tid < rows ? dtb + (long long)(t0 + tid) * H : dtb, tid < rows);
-  };
-
-  const int n_chunks = (S + kQ - 1) / kQ;
-  load_rows(Cs, ld, cb, c_ss, N, 0, min(kQ, S));
-  load_rows(Bs, ld, bb, b_ss, N, 0, min(kQ, S));
-  load_rows(Xs, kXld, xb, x_ss, kP, 0, min(kQ, S));
-  load_dt(0, min(kQ, S));
-  cp_async_commit();
-
-  // this warp's part of h: p rows 16 pm .. +15, n from nbase, N/16 n-tiles
-  const int pm = warp % 4;
-  const int nbase = (warp / 4) * (N / 2);
-  float hacc[kHTiles][4];
-#pragma unroll
-  for (int j = 0; j < kHTiles; ++j)
-    hacc[j][0] = hacc[j][1] = hacc[j][2] = hacc[j][3] = 0.f;
-
-  const int r0 = 16 * warp;  // this warp's rows of y in the chunk
-  const int i0 = r0 + g;     // this thread's rows: i0 and i0 + 8
-  const int i1 = i0 + 8;
-
-  for (int ci = 0; ci < n_chunks; ++ci) {
-    const int t0 = ci * kQ;
-    const int rows = min(kQ, S - t0);
-    cp_async_wait_all();
-    __syncthreads();  // this chunk's tiles and h's bf16 copy are in place
-
-    // 1. the cumulative sum of dA over the chunk (warp 0)
-    if (warp == 0) {
-      float v[4], d[4];
-      float run = 0.f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        d[k] = dts[4 * lane + k];
-        run += d[k] * a;
-        v[k] = run;
-      }
-      float incl = run;  // inclusive scan of the lanes' totals
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float up = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += up;
-      }
-      const float excl = incl - run;
-      const float last = __shfl_sync(0xffffffffu, excl + v[3], 31);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float c = excl + v[k];
-        cum[4 * lane + k] = c;
-        wst[4 * lane + k] = expf(last - c) * d[k];
-        ecum[4 * lane + k] = expf(c);
-      }
-    }
-    __syncthreads();
-    // the decay below the diagonal of this warp's rows, factored around its
-    // first row r0: exp(cum[i] - cum[j]) = exp(cum[i] - cum[r0]) *
-    // exp(cum[r0] - cum[j]) for j < r0 <= i, both factors at most 1; the key
-    // factors (times dt) in this warp's row of kdec, which no other warp reads
-    float* kd = kdec + warp * kQ;
-    for (int j = lane; j < r0; j += 32) kd[j] = __expf(cum[r0] - cum[j]) * dts[j];
-    __syncwarp();
-
-    // 2. y for this warp's rows: C h^T * exp(dA_cum), then the masked
-    //    C B^T .* L * dt times x, key blocks of 32 on the lower triangle
-    float yacc[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      yacc[n][0] = yacc[n][1] = yacc[n][2] = yacc[n][3] = 0.f;
-    const int ksteps = N / 16;
-    const float c0 = cum[i0], c1 = cum[i1];
-    const float rf0 = __expf(c0 - cum[r0]), rf1 = __expf(c1 - cum[r0]);
-    for (int kb = 0; kb < 4; ++kb) {  // keys 32 kb .. 32 kb + 31
-      if (2 * kb > warp) break;       // above the diagonal for every row
-      const bool with_off = kb == 0 && ci > 0;  // h is zero in chunk 0
-      float sacc[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-        sacc[n][0] = sacc[n][1] = sacc[n][2] = sacc[n][3] = 0.f;
-#pragma unroll 1  // unrolled, it spills at 128 registers
-      for (int ks = 0; ks < ksteps; ++ks) {
-        uint32_t cf[4];
-        ldsm_x4(smem_addr(Cs + (r0 + lane % 16) * ld + ks * 16 +
-                          (lane / 16) * 8),
-                cf);
-        if (with_off) {
-#pragma unroll
-          for (int pp = 0; pp < 4; ++pp) {
-            uint32_t bf[4];
-            ldsm_x4(smem_addr(Hb + (16 * pp + lane % 8 + (lane / 16) * 8) * ld +
-                              ks * 16 + ((lane / 8) % 2) * 8),
-                    bf);
-            mma_bf16(yacc[2 * pp], cf, bf[0], bf[1]);
-            mma_bf16(yacc[2 * pp + 1], cf, bf[2], bf[3]);
-          }
-        }
-#pragma unroll
-        for (int jp = 0; jp < 2; ++jp) {  // keys 32 kb + 16 jp .. + 15
-          if (2 * kb + jp > warp) continue;
-          uint32_t bf[4];
-          ldsm_x4(smem_addr(Bs + (32 * kb + 16 * jp + lane % 8 +
-                                  (lane / 16) * 8) * ld +
-                            ks * 16 + ((lane / 8) % 2) * 8),
-                  bf);
-          mma_bf16(sacc[2 * jp], cf, bf[0], bf[1]);
-          mma_bf16(sacc[2 * jp + 1], cf, bf[2], bf[3]);
-        }
-      }
-      if (with_off) {
-        const float e0 = ecum[i0], e1 = ecum[i1];
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          yacc[n][0] *= e0;
-          yacc[n][1] *= e0;
-          yacc[n][2] *= e1;
-          yacc[n][3] *= e1;
-        }
-      }
-      // (C B^T .* L * dt) of this key block, rounded to bf16, times x
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {  // keys 32 kb + 16 kk .. + 15
-        const int kt = 2 * kb + kk;     // the key tile of 16
-        if (kt > warp) continue;
-        uint32_t pf[4];
-        if (kt < warp) {  // wholly below the diagonal
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int j = 2 * kk + half;
-            const int key = 32 * kb + 8 * j + 2 * tq;
-            const float2 f = *reinterpret_cast<const float2*>(kd + key);
-            pf[2 * half] = pack_bf16(sacc[j][0] * rf0 * f.x,
-                                     sacc[j][1] * rf0 * f.y);
-            pf[2 * half + 1] = pack_bf16(sacc[j][2] * rf1 * f.x,
-                                         sacc[j][3] * rf1 * f.y);
-          }
-        } else {  // the diagonal tile: exact 0 above it
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int j = 2 * kk + half;
-            const int key = 32 * kb + 8 * j + 2 * tq;
-            const float2 cj = *reinterpret_cast<const float2*>(cum + key);
-            const float2 dj = *reinterpret_cast<const float2*>(dts + key);
-            const float v0 =
-                i0 >= key ? sacc[j][0] * __expf(c0 - cj.x) * dj.x : 0.f;
-            const float v1 =
-                i0 >= key + 1 ? sacc[j][1] * __expf(c0 - cj.y) * dj.y : 0.f;
-            const float v2 =
-                i1 >= key ? sacc[j][2] * __expf(c1 - cj.x) * dj.x : 0.f;
-            const float v3 =
-                i1 >= key + 1 ? sacc[j][3] * __expf(c1 - cj.y) * dj.y : 0.f;
-            pf[2 * half] = pack_bf16(v0, v1);
-            pf[2 * half + 1] = pack_bf16(v2, v3);
-          }
-        }
-#pragma unroll
-        for (int pp = 0; pp < 4; ++pp) {
-          uint32_t bf[4];
-          ldsm_x4_trans(
-              smem_addr(Xs + (16 * kt + lane % 8 + ((lane / 8) % 2) * 8) * kXld +
-                        16 * pp + (lane / 16) * 8),
-              bf);
-          mma_bf16(yacc[2 * pp], pf, bf[0], bf[1]);
-          mma_bf16(yacc[2 * pp + 1], pf, bf[2], bf[3]);
-        }
-      }
-    }
-    __syncthreads();  // every read of Cs and Hb is done
-    if (ci + 1 < n_chunks)  // the next C in flight during the state update
-      load_rows(Cs, ld, cb, c_ss, N, t0 + kQ, min(kQ, S - t0 - kQ));
-    cp_async_commit();
-
-    // 3. h <- h * exp(dA_cum[Q-1]) + (x * w)^T B on this warp's part of h
-    const float chunk_decay = expf(cum[kQ - 1]);
-#pragma unroll
-    for (int j = 0; j < kHTiles; ++j) {
-      hacc[j][0] *= chunk_decay;
-      hacc[j][1] *= chunk_decay;
-      hacc[j][2] *= chunk_decay;
-      hacc[j][3] *= chunk_decay;
-    }
-    const int npairs = N / 32;
-#pragma unroll 2
-    for (int ks = 0; ks < kQ / 16; ++ks) {  // positions 16 ks .. + 15
-      uint32_t af[4];
-      ldsm_x4_trans(smem_addr(Xs + (16 * ks + lane % 8 + (lane / 16) * 8) * kXld +
-                              16 * pm + ((lane / 8) % 2) * 8),
-                    af);
-      const float2 wa = *reinterpret_cast<const float2*>(wst + 16 * ks + 2 * tq);
-      const float2 wb =
-          *reinterpret_cast<const float2*>(wst + 16 * ks + 8 + 2 * tq);
-      af[0] = scale_bf16(af[0], wa);
-      af[1] = scale_bf16(af[1], wa);
-      af[2] = scale_bf16(af[2], wb);
-      af[3] = scale_bf16(af[3], wb);
-#pragma unroll
-      for (int np = 0; np < kHTiles / 2; ++np) {
-        if (np >= npairs) break;
-        uint32_t bf[4];
-        ldsm_x4_trans(smem_addr(Bs + (16 * ks + lane % 8 + ((lane / 8) % 2) * 8) *
-                                         ld +
-                                nbase + 16 * np + (lane / 16) * 8),
-                      bf);
-        mma_bf16(hacc[2 * np], af, bf[0], bf[1]);
-        mma_bf16(hacc[2 * np + 1], af, bf[2], bf[3]);
-      }
-    }
-
-    // 4. y of this warp's rows
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int p = 8 * n + 2 * tq;
-      if (i0 < rows)
-        *reinterpret_cast<uint32_t*>(yb + (long long)(t0 + i0) * H * kP + p) =
-            pack_bf16(yacc[n][0], yacc[n][1]);
-      if (i1 < rows)
-        *reinterpret_cast<uint32_t*>(yb + (long long)(t0 + i1) * H * kP + p) =
-            pack_bf16(yacc[n][2], yacc[n][3]);
-    }
-    __syncthreads();  // every read of Xs, Bs, dts and wst is done
-
-    // 5. h entering the next chunk, in bf16 for its C h^T; the next x, B, dt
-    if (ci + 1 < n_chunks) {
-#pragma unroll
-      for (int j = 0; j < kHTiles; ++j) {
-        if (j >= N / 16) break;
-        const int n = nbase + 8 * j + 2 * tq;
-        const int p = 16 * pm + g;
-        *reinterpret_cast<uint32_t*>(Hb + p * ld + n) =
-            pack_bf16(hacc[j][0], hacc[j][1]);
-        *reinterpret_cast<uint32_t*>(Hb + (p + 8) * ld + n) =
-            pack_bf16(hacc[j][2], hacc[j][3]);
-      }
-      const int next_rows = min(kQ, S - t0 - kQ);
-      load_rows(Bs, ld, bb, b_ss, N, t0 + kQ, next_rows);
-      load_rows(Xs, kXld, xb, x_ss, kP, t0 + kQ, next_rows);
-      load_dt(t0 + kQ, next_rows);
-    }
-    cp_async_commit();
-  }
-
-  if (state_out != nullptr) {
-    float* sb = state_out + ((long long)b * H + hh) * kP * N;
-#pragma unroll
-    for (int j = 0; j < kHTiles; ++j) {
-      if (j >= N / 16) break;
-      const int n = nbase + 8 * j + 2 * tq;
-      const int p = 16 * pm + g;
-      *reinterpret_cast<float2*>(sb + (long long)p * N + n) =
-          make_float2(hacc[j][0], hacc[j][1]);
-      *reinterpret_cast<float2*>(sb + (long long)(p + 8) * N + n) =
-          make_float2(hacc[j][2], hacc[j][3]);
-    }
-  }
-}
-
 int launch_f32(const void* x, const float* dt, const float* A, const void* B,
                const void* C, void* y, float* state, int batch, int S, int H,
                int G, int N, long long x_sb, long long x_ss, long long b_sb,
@@ -736,35 +369,696 @@ int launch_f32(const void* x, const float* dt, const float* A, const void* B,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kNMax>
-int launch_bf16(const void* x, const float* dt, const float* A, const void* B,
-                const void* C, void* y, float* state, int batch, int S, int H,
-                int G, int N, long long x_sb, long long x_ss, long long b_sb,
-                long long b_ss, long long c_sb, long long c_ss,
-                cudaStream_t stream) {
-  // C and B (kQ x ld), x (kQ x kXld), h's copy (kP x ld), 12 x kQ floats
-  const int ld = N + 8;
-  const int smem = static_cast<int>(
-      sizeof(__nv_bfloat16) * ((2 * kQ + kP) * ld + kQ * kXld) +
-      sizeof(float) * 12 * kQ);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_bf16_kernel<kNMax>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+
+// ---------------------------------------------------------------------------
+// bf16 route: wgmma, TMA and mbarrier rings (sm_90a)
+// ---------------------------------------------------------------------------
+
+constexpr int kSlab = 64;               // state columns of a slab: 128 bytes
+constexpr int kTileBytes = kQ * 128;    // 128 rows of 64 bf16: x, or a B or C slab
+constexpr int kHSlabBytes = kP * 128;   // 64 rows of 64 bf16: a slab of h's copy
+constexpr int kChunkStages = 2;         // chunks of x and dA in flight
+constexpr int kMaxSlabStages = 4;       // B and C slabs in flight, at most
+constexpr int kWgThreads = 3 * 128;     // a producer and two consumer warpgroups
+// setmaxnreg moves registers within the block's launch share, 168 a thread
+// (65,536 / 384, rounded down to 8): the consumers' increase waits for the
+// producer's decrease, and never ends if the two do not fit that share
+constexpr int kLaunchRegs = 168;
+constexpr int kProducerRegs = 72;
+constexpr int kConsumerRegs = 216;
+static_assert(kProducerRegs + 2 * kConsumerRegs <= 3 * kLaunchRegs,
+              "the three warpgroups' registers fit the block's launch share");
+
+// Shared memory of one block, in bytes from a 1024-byte boundary (the 128B
+// swizzle's atom): the x tile of each chunk stage, h's bf16 copies (two, by
+// the parity of the chunk that reads them, per slab), each consumer's y
+// tile (64 x 64, read by the TMA store), the ring of B and C slabs (its
+// depth is picked at launch), then per chunk stage the dA scan's four rows
+// (cum, dt, w, exp(cum)), each consumer warp's key factors, and the
+// mbarriers.
+template <int kNS>
+struct WgSmem {
+  static constexpr int kX = 0;
+  static constexpr int kH = kX + kChunkStages * kTileBytes;
+  static constexpr int kY = kH + 2 * kNS * kHSlabBytes;
+  static constexpr int kSlabs = kY + 2 * kHSlabBytes;
+  static constexpr int kScalBytes = kChunkStages * 4 * kQ * 4;
+  static constexpr int kKdBytes = 8 * kQ * 4;
+  static constexpr int kBarBytes =
+      8 * (2 * kMaxSlabStages + 2 * kChunkStages + 2 + 4);
+  static constexpr int bytes(int slab_stages) {
+    return kSlabs + slab_stages * 2 * kTileBytes + kScalBytes + kKdBytes +
+           kBarBytes;
+  }
+};
+
+// What a launch passes besides the tensor maps: the tensors as they lie (for
+// the cp.async copies, dt, A and the outputs) and the walk's sizes.
+struct SsdArgs {
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* B;
+  const __nv_bfloat16* C;
+  const float* dt;
+  const float* A;
+  __nv_bfloat16* y;
+  float* state;
+  long long x_sb, x_ss, b_sb, b_ss, c_sb, c_ss;
+  int batch, S, H, G, N;
+  int tma;          // 1: TMA boxes; 0: 8-byte cp.async (views on 8 bytes)
+  int slab_stages;  // depth of the B and C ring
+};
+
+// One block's shared-memory addresses and walk.
+struct WgCtx {
+  uint32_t base;   // 1024-byte aligned
+  uint8_t* gbase;  // the same, as a generic pointer
+  uint32_t ys, slabs, scal, kd, bar;
+  int slab_stages, ns;  // ring depth; slabs of the instance
+  int head, b, grp;
+  int n_chunks;
+  __device__ uint32_t slab_full(int st) const { return bar + 8 * st; }
+  __device__ uint32_t slab_empty(int st) const {
+    return bar + 8 * (kMaxSlabStages + st);
+  }
+  __device__ uint32_t chunk_full(int cs) const {
+    return bar + 8 * (2 * kMaxSlabStages + cs);
+  }
+  __device__ uint32_t chunk_empty(int cs) const {
+    return bar + 8 * (2 * kMaxSlabStages + kChunkStages + cs);
+  }
+  // h's copies of parity q are written, by every warpgroup holding a part
+  __device__ uint32_t hfull(int q) const {
+    return bar + 8 * (2 * kMaxSlabStages + 2 * kChunkStages + q);
+  }
+  // consumer c has read the copies of parity q
+  __device__ uint32_t hempty(int c, int q) const {
+    return bar + 8 * (2 * kMaxSlabStages + 2 * kChunkStages + 2 + 2 * c + q);
+  }
+  __device__ uint32_t xtile(int cs) const { return base + cs * kTileBytes; }
+  __device__ uint32_t hcopy(int q, int s) const {
+    return base + kChunkStages * kTileBytes + (q * ns + s) * kHSlabBytes;
+  }
+  // consumer c's y tile
+  __device__ uint32_t ytile(int c) const { return ys + c * kHSlabBytes; }
+  __device__ uint32_t cslab(int st) const {
+    return slabs + st * 2 * kTileBytes;
+  }
+  // the scan's rows of a chunk stage: cum at 0, dt at kQ, w at 2 kQ,
+  // exp(cum) at 3 kQ
+  __device__ float* scalars(int cs) const {
+    return reinterpret_cast<float*>(gbase + (scal - base)) + cs * 4 * kQ;
+  }
+  __device__ float* keyf(int warp8) const {
+    return reinterpret_cast<float*>(gbase + (kd - base)) + warp8 * kQ;
+  }
+};
+
+// The block's context, made by each warpgroup after its setmaxnreg, so that
+// nothing stays live across the change of register counts.
+template <int kNS>
+__device__ __forceinline__ WgCtx wg_context(const SsdArgs& a) {
+  using L = WgSmem<kNS>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  WgCtx w;
+  w.base = (raw + 1023) & ~1023u;
+  w.gbase = smem_raw + (w.base - raw);
+  w.slab_stages = a.slab_stages;
+  w.ns = kNS;
+  w.ys = w.base + L::kY;
+  w.slabs = w.base + L::kSlabs;
+  w.scal = w.slabs + a.slab_stages * 2 * kTileBytes;
+  w.kd = w.scal + L::kScalBytes;
+  w.bar = w.kd + L::kKdBytes;
+  // the heads of one group are consecutive on the grid's fast axis, so
+  // that their B and C tiles are read while L2 holds them
+  w.head = blockIdx.x;
+  w.grp = w.head / (a.H / a.G);
+  w.b = blockIdx.y;
+  w.n_chunks = (a.S + kQ - 1) / kQ;
+  return w;
+}
+
+// Which part of the state consumer c holds: the slabs [lo, hi). With N up
+// to 128 consumer 0 holds it all (the rows it takes are the lighter half of
+// the triangle); above 128 the two split its slabs, as one warpgroup's
+// registers do not hold 64 x 256 floats beside the rest.
+template <int kNS, int c>
+struct Holding {
+  static constexpr bool kSplit = kNS > 2;
+  static constexpr int lo = kSplit && c == 1 ? kNS / 2 : 0;
+  static constexpr int hi = kSplit ? (c == 0 ? kNS / 2 : kNS)
+                                   : (c == 0 ? kNS : 0);
+  static constexpr int slabs = hi - lo;
+  // warpgroups that write h's copies
+  static constexpr int writers = kSplit ? 2 : 1;
+};
+
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Rows 0 .. 127 of a (rows, cols) bf16 view whose rows are row_stride
+// elements apart into a 128 x 64 tile in the 128B-swizzled layout a TMA box
+// lands, by 8-byte cp.async from the 128 threads of a warpgroup; zeros at
+// or past ``rows`` and ``cols``.
+__device__ __forceinline__ void copy_tile8(uint32_t dst, const __nv_bfloat16* src,
+                           long long row_stride, int rows, int cols, int t) {
+#pragma unroll 1  // few registers: the producer's are 72
+  for (int e = t; e < kQ * 16; e += 128) {
+    const int r = e / 16;
+    const int q = e % 16;  // the 8-byte piece of the 128-byte row
+    const bool ok = r < rows && 4 * q < cols;
+    const uint32_t d =
+        dst + r * 128 + ((((q / 2) ^ (r & 7)) << 4) | ((q & 1) << 3));
+    cp_async8(d, ok ? src + r * row_stride + 4 * q : src, ok);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// a bf16 pair times two floats, rounded back to a bf16 pair
+__device__ __forceinline__ uint32_t scale_bf16(uint32_t u, float2 w) {
+  const float2 f =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+  return pack_bf16(f.x * w.x, f.y * w.y);
+}
+
+// Chunk ci's dt into 4 positions a lane (zero past S and for chunks past
+// the last), by plain loads: one head's dt is 4 bytes wide, under TMA's
+// 16-byte box
+__device__ __forceinline__ void load_dt(float (&d)[4], const SsdArgs& a,
+                                        const WgCtx& w, int ci, int lane) {
+  const int rows = min(kQ, a.S - ci * kQ);
+  const float* dtb = a.dt + ((long long)w.b * a.S + ci * kQ) * a.H + w.head;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int tt = 4 * lane + j;
+    d[j] = tt < rows ? dtb[(long long)tt * a.H] : 0.f;
+  }
+}
+
+// The producer warpgroup. With TMA one warp works: lane 0 issues every box,
+// the 32 lanes load dt by plain loads and scan dA. With cp.async (a view on
+// 8-byte boundaries) all 128 threads copy, then wait for their copies and
+// fence them to the async proxy before they arrive.
+template <int kNS>
+__device__ __forceinline__ void ssd_producer(const CUtensorMap* tx,
+                                             const CUtensorMap* tb,
+                                             const CUtensorMap* tc,
+                                             const SsdArgs& a) {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+  const int t = threadIdx.x;
+  if (a.tma && t >= 32) return;
+  const WgCtx w = wg_context<kNS>(a);
+  const int lane = t % 32;
+  float dn[4];  // the next chunk's dt, 4 positions a lane
+  if (t < 32) load_dt(dn, a, w, 0, lane);
+  for (int ci = 0; ci < w.n_chunks; ++ci) {
+    const int t0 = ci * kQ;
+    const int rows = min(kQ, a.S - t0);
+    const int cs = ci % kChunkStages;
+    mbar_wait(w.chunk_empty(cs), ((ci / kChunkStages) & 1) ^ 1);
+    if (a.tma) {
+      if (lane == 0) {
+        mbar_expect_tx(w.chunk_full(cs), kTileBytes);
+        tma_load(w.xtile(cs), tx, w.chunk_full(cs), 0, w.head, t0, w.b);
+      }
+    } else {
+      copy_tile8(w.xtile(cs), a.x + w.b * a.x_sb + t0 * a.x_ss + w.head * kP,
+                 a.x_ss, rows, kP, t);
+      cp_async_wait_all();
+      fence_proxy_async();
+    }
+    if (t < 32) {
+      // dA = dt * A and its inclusive sum over the chunk: 4 positions a
+      // lane, then a scan of the lanes' totals; rows past S have dt = 0.
+      // The next chunk's dt is loaded now, to land while this one waits.
+      float d[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) d[j] = dn[j];
+      load_dt(dn, a, w, ci + 1, lane);
+      const float av = a.A[w.head];
+      float v[4];
+      float run = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        run += d[j] * av;
+        v[j] = run;
+      }
+      float incl = run;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float up = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += up;
+      }
+      const float excl = incl - run;
+      const float last = __shfl_sync(0xffffffffu, excl + v[3], 31);
+      float* sc = w.scalars(cs);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int tt = 4 * lane + j;
+        const float c = excl + v[j];
+        sc[tt] = c;
+        sc[kQ + tt] = d[j];
+        sc[2 * kQ + tt] = expf(last - c) * d[j];
+        sc[3 * kQ + tt] = expf(c);
+      }
+    }
+    mbar_arrive(w.chunk_full(cs));
+    for (int sl = 0; sl < kNS; ++sl) {
+      const int i = ci * kNS + sl;
+      const int st = i % w.slab_stages;
+      mbar_wait(w.slab_empty(st), ((i / w.slab_stages) & 1) ^ 1);
+      const uint32_t cdst = w.cslab(st);
+      if (a.tma) {
+        if (lane == 0) {
+          mbar_expect_tx(w.slab_full(st), 2 * kTileBytes);
+          tma_load(cdst, tc, w.slab_full(st), kSlab * sl, w.grp, t0, w.b);
+          tma_load(cdst + kTileBytes, tb, w.slab_full(st), kSlab * sl, w.grp,
+                   t0, w.b);
+        }
+      } else {
+        const int cols = min(kSlab, a.N - kSlab * sl);
+        const long long n0 = (long long)w.grp * a.N + kSlab * sl;
+        copy_tile8(cdst, a.C + w.b * a.c_sb + t0 * a.c_ss + n0, a.c_ss, rows,
+                   cols, t);
+        copy_tile8(cdst + kTileBytes, a.B + w.b * a.b_sb + t0 * a.b_ss + n0,
+                   a.b_ss, rows, cols, t);
+        cp_async_wait_all();
+        fence_proxy_async();
+        mbar_arrive(w.slab_full(st));
+      }
+    }
+  }
+}
+
+// (x w)^T for k16 steps kk0 .. kk0 + kSteps - 1 (positions 16 kk .. + 15) as
+// the A operand of the state update: this warp's p rows 16 warp .. + 15 by
+// ldmatrix.trans from the swizzled x tile, each pair of values scaled by
+// its positions' w and rounded to bf16
+template <int kSteps>
+__device__ __forceinline__ void xw_fragments(uint32_t (&xf)[kSteps][4],
+                                             uint32_t xt, const float* wv,
+                                             int kk0, int warp, int lane) {
+  const int mi = lane / 8;
+  const int tq = lane % 4;
+#pragma unroll
+  for (int j = 0; j < kSteps; ++j) {
+    const int kk = kk0 + j;
+    const int tt = 16 * kk + (mi / 2) * 8 + lane % 8;
+    const int pc = 2 * warp + (mi & 1);
+    ldsm_x4_trans(xt + tt * 128 + ((pc ^ (tt & 7)) << 4), xf[j]);
+    const float2 wa = *reinterpret_cast<const float2*>(wv + 16 * kk + 2 * tq);
+    const float2 wb =
+        *reinterpret_cast<const float2*>(wv + 16 * kk + 8 + 2 * tq);
+    xf[j][0] = scale_bf16(xf[j][0], wa);
+    xf[j][1] = scale_bf16(xf[j][1], wa);
+    xf[j][2] = scale_bf16(xf[j][2], wb);
+    xf[j][3] = scale_bf16(xf[j][3], wb);
+  }
+}
+
+// A consumer warpgroup: rows 64 c .. 64 c + 63 of each chunk, and the part
+// of the state that Holding gives it.
+//
+// No instruction but a wgmma writes an accumulator while products are in
+// flight (ptxas would then serialize every wgmma of the kernel): the first
+// product into an accumulator overwrites it (scale-d 0) instead of a zeroed
+// register, and the state's decay is applied by volatile multiplies before
+// the chunk's first product is issued.
+template <int kNS, int c>
+__device__ __forceinline__ void ssd_consumer(const CUtensorMap* ty,
+                                             const SsdArgs& a) {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  using Hold = Holding<kNS, c>;
+  constexpr int kKeys = 64 * (c + 1);  // the keys of these rows' triangle
+  constexpr bool kHolds = Hold::slabs > 0;
+  // The holder's x fragments (32 registers) are built once a chunk and
+  // kept across its slabs where the accumulators leave room; else they are
+  // rebuilt per slab in halves, each waited for.
+  constexpr int kLive =
+      kKeys / 2 + 32 + (kHolds ? 32 * Hold::slabs + 32 : 0);
+  constexpr bool kXwOnce = kLive <= 160;
+  const WgCtx w = wg_context<kNS>(a);
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const int g = lane / 4;    // the accumulator's row within 8
+  const int tq = lane % 4;   // the accumulator's column pair
+  const int wr = 4 * c + warp;  // this warp's 16-row tile of the chunk
+  const int r0 = 16 * wr;
+  const int i0 = r0 + g;     // this thread's rows: i0 and i0 + 8
+  const int i1 = i0 + 8;
+
+  float s[kKeys / 2];        // C B^T: these 64 rows x kKeys keys
+  float y[32];               // y: 64 rows x 64
+  float h[kHolds ? Hold::slabs : 1][32];  // the held slabs of h, 64 x 64
+  uint32_t xf[kHolds && kXwOnce ? 8 : 1][4];
+#pragma unroll
+  for (int sl = 0; sl < (kHolds ? Hold::slabs : 1); ++sl)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) h[sl][e] = 0.f;
+
+  for (int ci = 0; ci < w.n_chunks; ++ci) {
+    const int t0 = ci * kQ;
+    const int cs = ci % kChunkStages;
+    mbar_wait(w.chunk_full(cs), (ci / kChunkStages) & 1);
+    // below this warp's diagonal tile, L factored around its first row:
+    // exp(cum[i] - cum[j]) = exp(cum[i] - cum[r0]) exp(cum[r0] - cum[j]),
+    // both at most 1; the key factors times dt in this warp's own row
+    {
+      const float* sc = w.scalars(cs);
+      float* kd = w.keyf(4 * c + warp);
+      const float cr = sc[r0];
+      for (int j = lane; j < r0; j += 32)
+        kd[j] = __expf(cr - sc[j]) * sc[kQ + j];
+    }
+    __syncwarp();
+    const float* wv = w.scalars(cs) + 2 * kQ;
+    if constexpr (kHolds) {
+      const float decay = wv[2 * kQ - 1];  // exp(cum[Q-1])
+#pragma unroll
+      for (int sl = 0; sl < Hold::slabs; ++sl)
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          asm volatile("mul.f32 %0, %0, %1;\n" : "+f"(h[sl][e]) : "f"(decay));
+      if constexpr (kXwOnce)
+        xw_fragments<8>(xf, w.xtile(cs), wv, 0, warp, lane);
+    }
+    if (ci > 0)  // the holders' copies of h for this chunk's C h^T
+      mbar_wait(w.hfull(ci % 2), ((ci - 1) / 2) & 1);
+
+    // slab by slab of N: S += C B^T, y += C h^T (h as it entered the
+    // chunk), and the held slabs' h = h exp(cum[Q-1]) + (x w)^T B; one
+    // slab's products in flight while the next slab's are issued
+#pragma unroll
+    for (int sl = 0; sl < kNS; ++sl) {
+      const int i = ci * kNS + sl;
+      const int st = i % w.slab_stages;
+      mbar_wait(w.slab_full(st), (i / w.slab_stages) & 1);
+      const uint32_t cs_s = w.cslab(st);
+      const uint32_t bs_s = cs_s + kTileBytes;
+      const bool mine = kHolds && sl >= Hold::lo && sl < Hold::hi;
+      const int hs = mine ? sl - Hold::lo : 0;
+      uint32_t xh[kXwOnce ? 1 : 4][4];
+      if constexpr (kHolds && !kXwOnce)
+        if (mine)
+          xw_fragments<4>(xh, w.xtile(cs), wv, 0, warp, lane);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kSlab / 16; ++ks) {
+        const uint64_t dc =
+            sw128_desc(cs_s + c * 64 * 128 + ks * 32, 16, 1024);
+        const uint64_t db = sw128_desc(bs_s + ks * 32, 16, 1024);
+        if constexpr (c == 0)
+          wgmma_ss_n64(s, dc, db, sl > 0 || ks > 0);
+        else
+          wgmma_ss_n128(s, dc, db, sl > 0 || ks > 0);
+      }
+      if (ci > 0)
+#pragma unroll
+        for (int ks = 0; ks < kSlab / 16; ++ks)
+          wgmma_ss_n64(y, sw128_desc(cs_s + c * 64 * 128 + ks * 32, 16, 1024),
+                       sw128_desc(w.hcopy(ci % 2, sl) + ks * 32, 16, 1024),
+                       sl > 0 || ks > 0);
+      if constexpr (kHolds) {
+        if (mine) {
+          if constexpr (kXwOnce) {
+#pragma unroll
+            for (int kk = 0; kk < 8; ++kk)
+              wgmma_rs_n64(h[hs], xf[kk],
+                           sw128_desc(bs_s + kk * 16 * 128, kTileBytes, 1024));
+          } else {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_rs_n64(h[hs], xh[kk],
+                           sw128_desc(bs_s + kk * 16 * 128, kTileBytes, 1024));
+          }
+        }
+      }
+      wgmma_commit();
+      if constexpr (kHolds && !kXwOnce) {
+        if (mine) {
+          wgmma_wait_all();
+          xw_fragments<4>(xh, w.xtile(cs), wv, 4, warp, lane);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 4; kk < 8; ++kk)
+            wgmma_rs_n64(h[hs], xh[kk - 4],
+                         sw128_desc(bs_s + kk * 16 * 128, kTileBytes, 1024));
+          wgmma_commit();
+        }
+      }
+      if (sl > 0) {  // the previous slab's products are done: release it
+        wgmma_wait<1>();
+        __syncwarp();
+        if (lane == 0)
+          mbar_arrive(w.slab_empty((i - 1) % w.slab_stages));
+      }
+    }
+    wgmma_wait_all();
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(w.slab_empty((ci * kNS + kNS - 1) % w.slab_stages));
+      if (ci > 0) mbar_arrive(w.hempty(c, ci % 2));  // copies read
+    }
+    // a holder hands its slabs of h over as soon as they are updated: the
+    // bf16 copy for the next chunk's C h^T, once the other consumer has
+    // read the copy this buffer held
+    if constexpr (kHolds) {
+      if (ci + 1 < w.n_chunks) {
+        const int q = (ci + 1) % 2;
+        if (ci >= 2) mbar_wait(w.hempty(1 - c, q), ((ci - 2) / 2) & 1);
+        uint8_t* const hb = w.gbase + (w.hcopy(q, 0) - w.base);
+#pragma unroll
+        for (int sl = Hold::lo; sl < Hold::hi; ++sl)
+#pragma unroll
+          for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int p = 16 * warp + g + 8 * r;
+              *reinterpret_cast<uint32_t*>(
+                  hb + sl * kHSlabBytes + p * 128 + ((jn ^ (p & 7)) << 4) +
+                  tq * 4) = pack_bf16(h[sl - Hold::lo][4 * jn + 2 * r],
+                                      h[sl - Hold::lo][4 * jn + 2 * r + 1]);
+            }
+        fence_proxy_async();
+        mbar_arrive(w.hfull(q));
+      }
+    }
+
+    // y = (C h^T) exp(cum) + bf16(C B^T .* L * dt) x
+    const float* sc = w.scalars(cs);
+    const float* cum = sc;
+    const float* dtv = sc + kQ;
+    const float* kd = w.keyf(4 * c + warp);
+    if (ci > 0) {
+      const float e0 = sc[3 * kQ + i0], e1 = sc[3 * kQ + i1];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        y[4 * n] *= e0;
+        y[4 * n + 1] *= e0;
+        y[4 * n + 2] *= e1;
+        y[4 * n + 3] *= e1;
+      }
+    }
+    const float c0 = cum[i0], c1 = cum[i1];
+    const float rf0 = __expf(c0 - cum[r0]), rf1 = __expf(c1 - cum[r0]);
+    // the masked scores in bf16 as the A operand of the product with x:
+    // keys 16 kk .. + 15 are the accumulator's column blocks 2 kk, 2 kk + 1
+    uint32_t mf[kKeys / 16][4];
+#pragma unroll
+    for (int jb = 0; jb < kKeys / 8; ++jb) {
+      const int kt = jb / 2;  // the 16-key tile
+      const int key = 8 * jb + 2 * tq;
+      float v0 = 0.f, v1 = 0.f, v2 = 0.f, v3 = 0.f;
+      if (kt < wr) {  // wholly below this warp's diagonal tile
+        const float2 f = *reinterpret_cast<const float2*>(kd + key);
+        v0 = s[4 * jb] * rf0 * f.x;
+        v1 = s[4 * jb + 1] * rf0 * f.y;
+        v2 = s[4 * jb + 2] * rf1 * f.x;
+        v3 = s[4 * jb + 3] * rf1 * f.y;
+      } else if (kt == wr) {  // the diagonal tile: an exact 0 above it
+        const float2 cj = *reinterpret_cast<const float2*>(cum + key);
+        const float2 dj = *reinterpret_cast<const float2*>(dtv + key);
+        if (i0 >= key) v0 = s[4 * jb] * __expf(c0 - cj.x) * dj.x;
+        if (i0 >= key + 1) v1 = s[4 * jb + 1] * __expf(c0 - cj.y) * dj.y;
+        if (i1 >= key) v2 = s[4 * jb + 2] * __expf(c1 - cj.x) * dj.x;
+        if (i1 >= key + 1) v3 = s[4 * jb + 3] * __expf(c1 - cj.y) * dj.y;
+      }
+      mf[jb / 2][(jb % 2) * 2] = pack_bf16(v0, v1);
+      mf[jb / 2][(jb % 2) * 2 + 1] = pack_bf16(v2, v3);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      wgmma_rs_n64(y, mf[kk],
+                   sw128_desc(w.xtile(cs) + kk * 16 * 128, kTileBytes, 1024),
+                   kk > 0 || ci > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(w.chunk_empty(cs));
+
+    // y of this warpgroup's rows in bf16 into its tile (the 128B-swizzled
+    // layout the TMA store reads), once the last chunk's store has read it;
+    // the TMA store clips rows past S
+    if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+    {
+      uint8_t* const yt = w.gbase + (w.ytile(c) - w.base);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = 16 * warp + g + 8 * r;
+          *reinterpret_cast<uint32_t*>(yt + row * 128 +
+                                       ((n ^ (row & 7)) << 4) + tq * 4) =
+              pack_bf16(y[4 * n + 2 * r], y[4 * n + 2 * r + 1]);
+        }
+    }
+    fence_proxy_async();
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+    if (t == 0 && t0 + 64 * c < a.S) {
+      tma_store(ty, w.ytile(c), 0, w.head, t0 + 64 * c, w.b);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+  }
+  if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+
+  if constexpr (kHolds) {
+    if (a.state != nullptr) {
+      float* sb = a.state + ((long long)w.b * a.H + w.head) * kP * a.N;
+#pragma unroll
+      for (int sl = Hold::lo; sl < Hold::hi; ++sl)
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) {
+          const int n = kSlab * sl + 8 * jn + 2 * tq;
+          if (n >= a.N) continue;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int p = 16 * warp + g + 8 * r;
+            *reinterpret_cast<float2*>(sb + (long long)p * a.N + n) =
+                make_float2(h[sl - Hold::lo][4 * jn + 2 * r],
+                            h[sl - Hold::lo][4 * jn + 2 * r + 1]);
+          }
+        }
+    }
+  }
+}
+
+// kNS: slabs of 64 state columns (N up to 64 kNS, the last slab zero past
+// N).
+template <int kNS>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    ssd_scan_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                          const __grid_constant__ CUtensorMap tb,
+                          const __grid_constant__ CUtensorMap tc,
+                          const __grid_constant__ CUtensorMap ty,
+                          const SsdArgs a) {
+  if (threadIdx.x == 0) {
+    const WgCtx w = wg_context<kNS>(a);
+    const int copy_arrivals = a.tma ? 1 : 128;
+    for (int st = 0; st < a.slab_stages; ++st) {
+      mbar_init(w.slab_full(st), copy_arrivals);
+      mbar_init(w.slab_empty(st), 8);  // lane 0 of each consumer warp
+    }
+    for (int cs = 0; cs < kChunkStages; ++cs) {
+      // TMA: lane 0's expect_tx and the 32 scan lanes; cp.async: the 128
+      // copying threads (the scan lanes among them)
+      mbar_init(w.chunk_full(cs), a.tma ? 33 : 128);
+      mbar_init(w.chunk_empty(cs), 8);
+    }
+    for (int q = 0; q < 2; ++q) {
+      // every thread of each warpgroup that writes a part of h
+      mbar_init(w.hfull(q), 128 * Holding<kNS, 0>::writers);
+      for (int c = 0; c < 2; ++c) mbar_init(w.hempty(c, q), 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0)
+    ssd_producer<kNS>(&tx, &tb, &tc, a);
+  else if (wg == 1)
+    ssd_consumer<kNS, 0>(&ty, a);
+  else
+    ssd_consumer<kNS, 1>(&ty, a);
+}
+
+template <int kNS>
+int launch_wgmma(SsdArgs a, cudaStream_t stream) {
+  using L = WgSmem<kNS>;
+  CUtensorMap tx{}, tb{}, tc{}, ty{};
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t xd[4] = {kP, static_cast<cuuint64_t>(a.H),
+                            static_cast<cuuint64_t>(a.S),
+                            static_cast<cuuint64_t>(a.batch)};
+  // y (contiguous) in boxes of (64, 1 head, 64 positions, 1): one
+  // consumer's rows of a chunk; rows past S are not written
+  const cuuint64_t ys[3] = {2ull * kP, 2ull * kP * a.H, 2ull * kP * a.H * a.S};
+  const cuuint32_t ybox[4] = {kP, 1, 64, 1};
+  if (!bf16_map_4d(enc, &ty, a.y, xd, ys, ybox))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.tma) {
+    // (64, H, S, batch) boxes of x and (N, G, S, batch) boxes of B and C,
+    // each 64 wide by 128 positions: columns past N and rows past S come
+    // back as zeros
+    const cuuint32_t box[4] = {kSlab, 1, kQ, 1};
+    const cuuint64_t nd[4] = {static_cast<cuuint64_t>(a.N),
+                              static_cast<cuuint64_t>(a.G),
+                              static_cast<cuuint64_t>(a.S),
+                              static_cast<cuuint64_t>(a.batch)};
+    const cuuint64_t xs[3] = {2ull * kP, 2ull * a.x_ss, 2ull * a.x_sb};
+    const cuuint64_t bs[3] = {2ull * a.N, 2ull * a.b_ss, 2ull * a.b_sb};
+    const cuuint64_t cs[3] = {2ull * a.N, 2ull * a.c_ss, 2ull * a.c_sb};
+    if (!bf16_map_4d(enc, &tx, a.x, xd, xs, box) ||
+        !bf16_map_4d(enc, &tb, a.B, nd, bs, box) ||
+        !bf16_map_4d(enc, &tc, a.C, nd, cs, box))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the deepest ring of B and C slabs that fits beside the rest
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // 16-byte copies where every row start is on a 16-byte boundary
-  const bool vec16 =
-      reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(B) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(C) % 16 == 0 && x_sb % 8 == 0 &&
-      x_ss % 8 == 0 && b_sb % 8 == 0 && b_ss % 8 == 0 && c_sb % 8 == 0 &&
-      c_ss % 8 == 0;
-  const dim3 grid(H, batch);
-  ssd_scan_bf16_kernel<kNMax><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), dt, A,
-      static_cast<const __nv_bfloat16*>(B),
-      static_cast<const __nv_bfloat16*>(C), static_cast<__nv_bfloat16*>(y),
-      state, S, H, G, N, x_sb, x_ss, b_sb, b_ss, c_sb, c_ss, vec16 ? 1 : 0);
+  const int fit = (optin - 1024 - L::bytes(0)) / (2 * kTileBytes);
+  a.slab_stages = fit < kMaxSlabStages ? fit : kMaxSlabStages;
+  if (a.slab_stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = L::bytes(a.slab_stages) + 1024;  // + room to align
+  err = cudaFuncSetAttribute(ssd_scan_wgmma_kernel<kNS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(a.H, a.batch);
+  ssd_scan_wgmma_kernel<kNS><<<grid, kWgThreads, smem, stream>>>(
+      tx, tb, tc, ty, a);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bf16(SsdArgs a, cudaStream_t stream) {
+  const int ns = (a.N + kSlab - 1) / kSlab;
+  if (ns == 1) return launch_wgmma<1>(a, stream);
+  if (ns == 2) return launch_wgmma<2>(a, stream);
+  if (ns == 3) return launch_wgmma<3>(a, stream);
+  return launch_wgmma<4>(a, stream);
 }
 
 }  // namespace
@@ -791,12 +1085,16 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
     return launch_f32(x, dtf, Af, B, C, y, sf, batch, S, H, G, N, x_sb, x_ss,
                       b_sb, b_ss, c_sb, c_ss, st);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (N <= 64)
-    return launch_bf16<64>(x, dtf, Af, B, C, y, sf, batch, S, H, G, N, x_sb,
-                           x_ss, b_sb, b_ss, c_sb, c_ss, st);
-  if (N <= 128)
-    return launch_bf16<128>(x, dtf, Af, B, C, y, sf, batch, S, H, G, N, x_sb,
-                            x_ss, b_sb, b_ss, c_sb, c_ss, st);
-  return launch_bf16<256>(x, dtf, Af, B, C, y, sf, batch, S, H, G, N, x_sb,
-                          x_ss, b_sb, b_ss, c_sb, c_ss, st);
+  SsdArgs a{static_cast<const __nv_bfloat16*>(x),
+            static_cast<const __nv_bfloat16*>(B),
+            static_cast<const __nv_bfloat16*>(C),
+            dtf, Af, static_cast<__nv_bfloat16*>(y), sf,
+            x_sb, x_ss, b_sb, b_ss, c_sb, c_ss, batch, S, H, G, N, 0, 0};
+  // TMA where every row start is on a 16-byte boundary; else cp.async
+  a.tma = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(B) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(C) % 16 == 0 && x_sb % 8 == 0 &&
+          x_ss % 8 == 0 && b_sb % 8 == 0 && b_ss % 8 == 0 && c_sb % 8 == 0 &&
+          c_ss % 8 == 0;
+  return launch_bf16(a, st);
 }

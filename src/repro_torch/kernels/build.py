@@ -2,8 +2,9 @@
 shared libraries with a plain C interface, and load them with ctypes.
 
 A library is built at first use into ``build/kernels/`` at the root of the
-checkout, under a name keyed by a hash of its source and the compiler flags,
-so an edited source is rebuilt and an unchanged one is reused.
+checkout, under a name keyed by a hash of its source, the ``csrc`` headers
+it includes and the compiler flags, so an edited source or header is
+rebuilt and an unchanged one is reused.
 ``build_all`` starts one nvcc per source, all at once.
 Nothing here runs at import: the CPU tests import every module, and a host
 without nvcc never reaches this code.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -25,6 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("sim_step", "contention", "flash_attention", "ssd_scan")
+_LOCAL_INCLUDE = re.compile(rb'^#include "([^"]+)"', re.M)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}   # name -> nvcc's output (ptxas -v report)
@@ -43,9 +46,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library's path, keyed by its source, the ``csrc`` headers that
+    it includes by ``#include "..."`` (no header includes another) and
+    the compiler flags."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    text = src + b"".join((CSRC / h.decode()).read_bytes()
+                          for h in _LOCAL_INCLUDE.findall(src))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}.{digest[:16]}.so"
 
 

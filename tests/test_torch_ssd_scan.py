@@ -138,16 +138,15 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
                      B.to("meta"), C.to("meta"))          # not CUDA or CPU
 
 
-# the main path's widths (p = 64, chunk 128; n = 128 and zamba2's 64) at
-# small b and s: exact chunks, a ragged S, S below a chunk, grouped B/C, and
-# the state dims at the ends of what the kernel takes (32, 96, 256)
-CUDA_SHAPES = [dict(b=2, s=256, h=4, g=1, n=128),
-               dict(b=1, s=300, h=4, g=1, n=64),
-               dict(b=2, s=50, h=2, g=1, n=128),
-               dict(b=1, s=384, h=8, g=4, n=128),
-               dict(b=1, s=256, h=2, g=1, n=32),
-               dict(b=1, s=200, h=2, g=1, n=96),
-               dict(b=1, s=384, h=4, g=2, n=256)]
+# the main path's widths (p = 64, chunk 128) at small b and s, one case each:
+CUDA_SHAPES = [dict(b=2, s=256, h=4, g=1, n=128),   # mamba2's n, exact chunks
+               dict(b=1, s=300, h=4, g=1, n=64),    # zamba2's n, a ragged S
+               dict(b=2, s=50, h=2, g=1, n=128),    # S below a chunk
+               dict(b=1, s=384, h=8, g=4, n=128),   # grouped B/C
+               dict(b=1, s=256, h=2, g=1, n=32),    # the least n, half a slab
+               dict(b=1, s=200, h=2, g=1, n=96),    # n across two slabs
+               dict(b=1, s=384, h=4, g=2, n=256),   # the largest n, 4 slabs
+               dict(b=1, s=300, h=3, g=1, n=256)]   # 3 heads a group, ragged
 
 
 def _cuda_operands(shape, dtype):

@@ -14,10 +14,12 @@ kernels are held to on the card (``chip_smoke.py``'s ``FA_TOL`` and
   q rows walks only the kv tiles from its window's first live tile
   (``kt_begin``) to its diagonal; skipping the others changes no bit.
 - K5 rounds three operands to bf16: (C B^T .* L) * dt (dt folded into the
-  score), x * exp(dA_cum[Q-1] - dA_cum) * dt for the state update, and the
-  bf16 copy of h that C h^T reads; products of bf16 inputs are exact in
-  float32 and every sum is float32. Held at 5e-2 as atol and rtol on y and
-  on the final state.
+  score, L factored around each 16-row tile's first row as the wgmma
+  route's warps factor it), x * exp(dA_cum[Q-1] - dA_cum) * dt for the
+  state update (the decay folded into x, not into B), and the bf16 copy of
+  h that C h^T reads; products of bf16 inputs are exact in float32 and
+  every sum is float32. Held at 5e-2 as atol and rtol on y and on the
+  final state.
 
 Each emulation is held against the reference's Pallas kernel in interpret
 mode (as ``tests/test_kernels.py`` runs it) or, where that kernel does not
@@ -100,11 +102,16 @@ def fa_tc_emulation(q, k, v, *, window=None, tile=64, q_block=None):
 
 
 def ssd_tc_emulation(x, dt, A, B, C, *, chunk=128):
-    """K5's bf16 route, chunk by chunk with h carried in float32: y =
-    bf16((C B^T .* L) * dt) x + (C bf16(h)^T) * exp(dA_cum), h <- h *
-    exp(dA_cum[Q-1]) + bf16(x * exp(dA_cum[Q-1] - dA_cum) * dt)^T B, every
-    product of bf16 operands summed in float32; y rounded to bf16 once.
-    A ragged S is padded with dt = 0, as the kernel reads zeros past S."""
+    """K5's bf16 route (wgmma), chunk by chunk with h carried in float32,
+    in the kernel's order: y = (C bf16(h)^T) * exp(dA_cum) + bf16((C B^T *
+    rf) * kd) x, and h <- h * exp(dA_cum[Q-1]) + bf16(x * w)^T B with w =
+    exp(dA_cum[Q-1] - dA_cum) * dt, every product of bf16 operands summed
+    in float32; y rounded to bf16 once. L is factored as the kernel's warps
+    factor it around the first row r0 of each 16-row tile: below the tile's
+    diagonal block rf = exp(cum[i] - cum[r0]) and kd = exp(cum[r0] -
+    cum[j]) * dt[j], both at most 1 (times dt); on the diagonal block
+    exp(cum[i] - cum[j]) * dt[j] and an exact 0 above the diagonal. A
+    ragged S is padded with dt = 0, as the kernel reads zeros past S."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     rep = h // g
@@ -115,25 +122,30 @@ def ssd_tc_emulation(x, dt, A, B, C, *, chunk=128):
         torch.nn.functional.pad(B.to(F32), (0, 0, 0, 0, 0, pad)), rep, dim=2)
     Cf = torch.repeat_interleave(
         torch.nn.functional.pad(C.to(F32), (0, 0, 0, 0, 0, pad)), rep, dim=2)
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    rows = torch.arange(chunk)
+    r0 = rows // 16 * 16                                # each row's tile start
+    tri = rows[:, None] >= rows[None, :]
+    below = rows[None, :] < r0[:, None]                 # left of the diagonal block
     state = torch.zeros((b, h, p, n))
     ys = []
     for t0 in range(0, s + pad, chunk):
         X = xf[:, t0:t0 + chunk]                       # (b, Q, h, p)
-        d = dtf[:, t0:t0 + chunk]                      # (b, Q, h)
+        d = dtf[:, t0:t0 + chunk].permute(0, 2, 1)     # (b, h, Q)
         Bk, Ck = Bf[:, t0:t0 + chunk], Cf[:, t0:t0 + chunk]
-        cum = torch.cumsum(d * A.to(F32), dim=1)       # (b, Q, h)
-        cum_h = cum.permute(0, 2, 1)                   # (b, h, Q)
-        seg = cum_h[..., :, None] - cum_h[..., None, :]
+        cum = torch.cumsum(d * A.to(F32)[:, None], dim=-1)   # (b, h, Q)
         scores = torch.einsum("bihn,bjhn->bhij", Ck, Bk)
-        gated = torch.where(tri, scores * torch.exp(seg)
-                            * d.permute(0, 2, 1)[:, :, None, :], 0.0)
+        c_r0 = cum[..., r0]                                  # (b, h, Q): cum[r0(i)]
+        rf = torch.exp(cum - c_r0)[..., :, None]             # rows
+        kd = torch.exp(c_r0[..., :, None] - cum[..., None, :]) * d[..., None, :]
+        diag = torch.exp(cum[..., :, None] - cum[..., None, :]) * d[..., None, :]
+        gated = torch.where(below, scores * rf * kd,
+                            torch.where(tri, scores * diag, 0.0))
         y_diag = torch.einsum("bhij,bjhp->bihp", gated.to(BF16).to(F32), X)
-        y_off = torch.einsum("bihn,bhpn->bihp", Ck,
-                             state.to(BF16).to(F32)) * torch.exp(cum)[..., None]
+        y_off = torch.einsum("bihn,bhpn->bihp", Ck, state.to(BF16).to(F32)) * (
+            torch.exp(cum).permute(0, 2, 1)[..., None])
         ys.append(y_off + y_diag)
-        last = cum[:, -1]                              # (b, h)
-        w = torch.exp(last[:, None] - cum) * d         # (b, Q, h)
+        last = cum[..., -1]                                  # (b, h)
+        w = (torch.exp(last[..., None] - cum) * d).permute(0, 2, 1)  # (b, Q, h)
         xw = (X * w[..., None]).to(BF16).to(F32)
         state = (state * torch.exp(last)[..., None, None]
                  + torch.einsum("bthp,bthn->bhpn", xw, Bk))
@@ -250,10 +262,12 @@ SSD_CASES = [
     (2, 384, 2, 64, 1, 64),      # zamba2's state
     (1, 256, 4, 64, 2, 128),     # grouped B/C
     (1, 256, 2, 64, 1, 256),     # the largest state the kernel takes
+    (1, 256, 3, 64, 1, 128),     # an odd number of heads per group
 ]
 SSD_RAGGED_CASES = [
     (1, 300, 2, 64, 1, 128),     # S not a multiple of the chunk
     (2, 50, 2, 64, 1, 32),       # S below one chunk
+    (1, 40, 3, 64, 1, 64),       # one chunk shorter than a warpgroup's rows
 ]
 
 

@@ -74,8 +74,9 @@ def build_variant(name, edits):
     with open(path, "w") as f:
         f.write(src)
     lib = os.path.join(out_dir, f"lib{name}.so")
-    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", lib,
-                           path], capture_output=True, text=True)
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I",
+                           str(build.CSRC), "-o", lib, path],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         raise SystemExit(f"ablate_k4: {name} does not build:\n"
                          f"{proc.stdout}{proc.stderr}")
