@@ -52,7 +52,11 @@ port's entry points:
                 (scaled_dot_product_attention, timed only) and bound times,
                 and at each bf16 shape the first design's (the float32
                 route on the same inputs), which the bf16 kernel must beat
-                at the path's shape
+                at the path's shape; then the rest of its domain in bf16
+                and in float32 (FA_DOMAIN_SHAPES: SMOKE smollm's D = 24 and
+                granite's D = 16, D = 80 and 96 at smollm's path shape,
+                and causal=False at seamless's cross shape and a ragged
+                Skv = 600), and head dims off the domain refused
  11. serving    repro_torch.launch.serve at the full smollm-135m config
                 with attn_backend="pallas" (8 prompts of 1024 tokens, 32
                 greedy tokens each): prefill s, decode tokens/s, the
@@ -67,7 +71,10 @@ port's entry points:
                 profiler samples, with their least and most), plain and
                 bound times, and at each bf16 shape the first design's
                 (the float32 route), which the bf16 kernel must beat at
-                the path's shape
+                the path's shape; then SMOKE mamba2's mixer at chunk 16 and
+                the path's shape at chunk 64, in bf16 and in float32
+                (SSD_DOMAIN_SHAPES), and widths and chunks off the domain
+                refused
  13. mamba2     repro_torch.launch.serve at the full mamba2-1.3b config (8
                 prompts of 1024 tokens, 32 greedy tokens each): the scan
                 kernel launched once per layer in the prefill and never in
@@ -208,6 +215,16 @@ port's entry points:
                 to the trace's, the step's median against its roofline
                 bound (never below it), the traced peak beside
                 max_memory_allocated; no kernel runs
+ 28. smoke      serve --smoke for every arch (README.md's command, 2
+                prompts of 64 tokens, 8 greedy tokens), one subprocess per
+                arch started together, each exiting 0; in process,
+                serve() on each SMOKE config: K4 once per causal
+                self-attention layer of the prefill (none for MLA, none
+                for seamless's encoder and cross layers), K5 once per
+                Mamba2 layer, neither in a decode step, and the prefill
+                logits on the card (the kernels) against the CPU (their
+                plain versions) from the same weights, within 1e-4 in
+                float32 and 5e-2 atol and rtol in bf16
 
 It prints each phase's wall time, its findings on earlier lines, one JSON
 line with every kernel's numbers, the nvidia-smi line, and ends with the
@@ -410,6 +427,24 @@ FA_SHAPES = {
 # (tests/test_torch_tc_rounding.py holds an emulation of these roundings
 # against the reference at this limit)
 FA_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# K4 over the rest of its domain, name: (B, S, Skv, Hq, Hkv, D, causal):
+# each in bf16 and in float32 (phase 10's rows ``<name>_bf16``,
+# ``<name>_f32``). SMOKE smollm-135m's and granite-34b's prefill shapes at
+# serve --smoke's request (2 prompts of 64 tokens: D = 24, GQA 3:1, and
+# D = 16, MQA 6:1); phi-2's and phi-3-mini's published head dims (80 and
+# 96, their config.json on the Hugging Face hub) at smollm's path shape,
+# one per padded instance (64 columns up to D = 64, 128 above); and
+# causal=False at seamless-m4t-large-v2's cross-attention shape (1024
+# decoder positions over 256 frames, 16 heads of 64) and at a ragged
+# Skv = 600. The library time there is sdpa(is_causal=False).
+FA_DOMAIN_SHAPES = {
+    "smoke_smollm": (2, 64, 64, 3, 1, 24, True),
+    "smoke_granite": (2, 64, 64, 6, 1, 16, True),
+    "d80": (8, 1024, 1024, 9, 3, 80, True),
+    "d96": (8, 1024, 1024, 9, 3, 96, True),
+    "cross": (8, 1024, 256, 16, 16, 64, False),
+    "cross_ragged": (8, 1024, 600, 16, 16, 64, False),
+}
 # phase 11: smollm-135m at full width, the reference serve's greedy loop
 SERVE_ARCH = "smollm-135m"
 SERVE_BATCH = 8
@@ -437,6 +472,14 @@ SSD_SHAPES = {
     "grouped": (8, 1024, 8, 64, 4, 128, "bfloat16"),
 }
 SSD_CHUNK = 128
+# K5 over the rest of its domain, name: (b, s, h, p, g, n, chunk): SMOKE
+# mamba2-1.3b's mixer at serve --smoke's request (p = n = 16, chunk 16)
+# and mamba2's path shape at chunk 64, each in bf16 and in float32 (phase
+# 12's rows ``<name>_bf16``, ``<name>_f32``)
+SSD_DOMAIN_SHAPES = {
+    "smoke_mamba2": (2, 64, 8, 16, 1, 16, 16),
+    "mamba2_chunk64": (8, 1024, 64, 64, 1, 128, 64),
+}
 # the reference's own SSD tolerances (tests/test_kernels.py), as atol and
 # rtol: the same float32 math summed in another order; in bf16 y rounds
 # once from float32 in both, and the tensor-core route also rounds three
@@ -480,6 +523,16 @@ FAMILY_SERVE = {
          "qwen2-vl-72b": (4, 8, 1024, "full"),
          "deepseek-v2-236b": (1, 8, 1024, "full")},
 }
+# phase 28: every arch's SMOKE config served as ``serve --smoke`` serves it
+# (README.md): 2 prompts of 64 tokens, 8 greedy tokens, in process and
+# through the command line; its prefill logits on the card through the
+# kernels against the CPU through their plain versions on the same
+# parameters, within the SMOKE CPU tests' limits: 1e-4 in float32
+# (tests/test_torch_lm_families.py) and 5e-2 atol and rtol in bf16
+# (tests/test_torch_hybrid_serve.py)
+SMOKE_BATCH, SMOKE_PROMPT, SMOKE_GEN = 2, 64, 8
+SMOKE_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+SMOKE_CLI_TIMEOUT_S = 300
 # phase 24: qwen2-vl's vision tokens as a VLM_GRID x VLM_GRID (h, w) grid
 # at t = 0, the text going on from the grid's largest id + 1 on all three
 # M-RoPE sections
@@ -764,16 +817,18 @@ def bound_ms(n_bytes, n_ops, chain_ops):
             "bytes" if terms["bytes_ms"] >= t_ops else "operations", terms)
 
 
-def fa_bound(B, S, Hq, Hkv, D, window, dtype):
+def fa_bound(B, S, Hq, Hkv, D, window, dtype, *, Skv=None, causal=True):
     """K4's bound at one shape: q, k, v read once and o written once over
-    the memory rate, and the live (causal, windowed) score and PV products,
-    4 * D operations per live (query, key) pair of each head, over the
+    the memory rate, and the live (causal, windowed; without the causal
+    mask every one of the S x Skv) score and PV products, 4 * D operations
+    per live (query, key) pair of each head at the true head dim, over the
     peak rate of the inputs' type (bf16 tensor cores; float32 outside
     them, the rate at which float32 keeps its precision)."""
+    Skv = S if Skv is None else Skv
     esize = 2 if dtype == "bfloat16" else 4
-    n_bytes = esize * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+    n_bytes = esize * (2 * B * S * Hq * D + 2 * B * Skv * Hkv * D)
     w = min(window or S, S)
-    live = w * (w + 1) // 2 + (S - w) * w
+    live = (w * (w + 1) // 2 + (S - w) * w) if causal else S * Skv
     n_ops = 4 * B * Hq * D * live
     rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
     terms = {"bytes_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
@@ -1282,22 +1337,23 @@ def phase_fleet_scale(torch):
                 compact_ms=scale["compact"][0], profile=prof)
 
 
-def fa_plain(torch, q, k, v, window):
+def fa_plain(torch, q, k, v, window, causal=True):
     """K4's plain version; above FA_PLAIN_SCORE_BYTES of scores, one kv
     head's group of q heads at a time."""
     from repro_torch.kernels.flash_attention.ref import attention_reference
     B, S, Hq, _ = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if 4 * B * Hq * S * Skv <= FA_PLAIN_SCORE_BYTES:
-        return attention_reference(q, k, v, window=window)
+        return attention_reference(q, k, v, causal=causal, window=window)
     g = Hq // Hkv
     return torch.cat([attention_reference(
         q[:, :, h * g:(h + 1) * g].contiguous(), k[:, :, h:h + 1].contiguous(),
-        v[:, :, h:h + 1].contiguous(), window=window)
+        v[:, :, h:h + 1].contiguous(), causal=causal, window=window)
         for h in range(Hkv)], dim=2)
 
 
-def fa_row(torch, name, q, k, v, window, *, first_design=False):
+def fa_row(torch, name, q, k, v, window, *, first_design=False,
+           causal=True):
     """K4 on (q, k, v) against its plain version (within FA_TOL), with
     kernel (CUDA events), device (profiler), plain, library and bound
     times; ``first_design``: also the float32 route's on the same inputs.
@@ -1305,16 +1361,21 @@ def fa_row(torch, name, q, k, v, window, *, first_design=False):
     yardstick only: the port never calls it. With a window it takes a
     boolean band mask; for S above 4096 the kv heads are repeated to the q
     heads outside the timed call, so that the memory-efficient backend
-    (which takes a mask but not enable_gqa) runs instead of the math one."""
+    (which takes a mask but not enable_gqa) runs instead of the math one.
+    ``causal=False``: every key (Skv may differ from S), the library call
+    sdpa(is_causal=False)."""
     from repro_torch.kernels.flash_attention import ops
     sdpa = torch.nn.functional.scaled_dot_product_attention
     B, S, Hq, D = q.shape
-    Hkv = k.shape[2]
+    Skv, Hkv = k.shape[1], k.shape[2]
     dtype = str(q.dtype).split(".")[-1]
-    kern = lambda: ops.flash_attention(q, k, v, window=window)
-    plain = lambda: fa_plain(torch, q, k, v, window)
+    kern = lambda: ops.flash_attention(q, k, v, causal=causal, window=window)
+    plain = lambda: fa_plain(torch, q, k, v, window, causal)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    if window is None:
+    if not causal:
+        lib = lambda: sdpa(qt, kt, vt, is_causal=False, enable_gqa=True)
+        lib_call = "sdpa(is_causal=False, enable_gqa=True)"
+    elif window is None:
         lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
         lib_call = "sdpa(is_causal=True, enable_gqa=True)"
     else:
@@ -1333,9 +1394,10 @@ def fa_row(torch, name, q, k, v, window, *, first_design=False):
     err = float((got.float() - plain().float()).abs().max())
     if not err <= FA_TOL[dtype]:
         fail(f"flash_attention {name}: max abs err {err} > {FA_TOL[dtype]}")
-    b_ms, b_by, terms = fa_bound(B, S, Hq, Hkv, D, window, dtype)
-    row = dict(B=B, S=S, Hq=Hq, Hkv=Hkv, D=D, window=window,
-               dtype=dtype, max_abs_err=err,
+    b_ms, b_by, terms = fa_bound(B, S, Hq, Hkv, D, window, dtype, Skv=Skv,
+                                 causal=causal)
+    row = dict(B=B, S=S, Skv=Skv, Hq=Hq, Hkv=Hkv, D=D, causal=causal,
+               window=window, dtype=dtype, max_abs_err=err,
                ms=time_ms(torch, kern, samples=10, inner=10),
                device_ms=device_ms(torch, kern, FA_PREFIX, n=10),
                plain_ms=time_ms(torch, plain, samples=5, inner=3, warmup=1),
@@ -1350,8 +1412,9 @@ def fa_row(torch, name, q, k, v, window, *, first_design=False):
         row.update(first_design_ms=time_ms(torch, first, samples=5, inner=5),
                    first_design_device_ms=device_ms(torch, first, FA_PREFIX,
                                                     n=5))
-    print(f"[attention] {name} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
-          f"window={window} {dtype}: max_abs_err={err:.3g} "
+    print(f"[attention] {name} B={B} S={S} Skv={Skv} Hq={Hq} Hkv={Hkv} "
+          f"D={D} causal={causal} window={window} {dtype}: "
+          f"max_abs_err={err:.3g} "
           f"ms={row['ms']} device_ms={row['device_ms']} "
           f"first_design_device_ms={row.get('first_design_device_ms')} "
           f"plain_ms={row['plain_ms']} library_ms={row['library_ms']} "
@@ -1363,7 +1426,10 @@ def fa_row(torch, name, q, k, v, window, *, first_design=False):
 
 def phase_attention(torch):
     """10. K4 against its plain version at every shape of FA_SHAPES
-    (``fa_row``), with the first design's times at each bf16 shape."""
+    (``fa_row``), with the first design's times at each bf16 shape; then at
+    every shape of FA_DOMAIN_SHAPES in bf16 and in float32; and head dims
+    off the domain refused on the card without a launch."""
+    from repro_torch.kernels.flash_attention import ops
     rows = {}
     for i, (name, (B, S, Hq, Hkv, D, window, dtype)) in enumerate(
             FA_SHAPES.items()):
@@ -1374,6 +1440,31 @@ def phase_attention(torch):
                    for h in (Hq, Hkv, Hkv))
         rows[name] = fa_row(torch, name, q, k, v, window, first_design=True)
     faster_than_first(rows["smollm_bf16"], "flash_attention smollm_bf16")
+    for i, (name, (B, S, Skv, Hq, Hkv, D, causal)) in enumerate(
+            FA_DOMAIN_SHAPES.items()):
+        for dtype in ("bfloat16", "float32"):
+            gen = torch.Generator(device="cuda").manual_seed(100 + i)
+            q, k, v = (torch.randn((B, n, h, D), generator=gen,
+                                   device="cuda").to(getattr(torch, dtype))
+                       for n, h in ((S, Hq), (Skv, Hkv), (Skv, Hkv)))
+            tag = f"{name}_{'bf16' if dtype == 'bfloat16' else 'f32'}"
+            rows[tag] = fa_row(torch, tag, q, k, v, None, causal=causal)
+    for dtype, D in (("bfloat16", 12), ("bfloat16", 136), ("float32", 6),
+                     ("float32", 256)):
+        q = torch.zeros((1, 16, 2, D), dtype=getattr(torch, dtype),
+                        device="cuda")
+        before = ops.flash_attention.launches
+        try:
+            ops.flash_attention(q, q, q)
+        except ValueError:
+            pass
+        else:
+            fail(f"flash_attention took head dim {D} in {dtype}, off its "
+                 f"domain")
+        if ops.flash_attention.launches != before:
+            fail(f"flash_attention launched at head dim {D}")
+    print("[attention] head dims 12 and 136 (bf16), 6 and 256 (float32) "
+          "refused with ValueError, no launch")
     return rows
 
 
@@ -1517,7 +1608,7 @@ def allclose_ratio(torch, got, want, tol):
     return float(((got - want).abs() / (tol + tol * want.abs())).max())
 
 
-def ssd_row(torch, name, args, *, first_design=False):
+def ssd_row(torch, name, args, *, first_design=False, chunk=SSD_CHUNK):
     """K5 on ``args`` (x, dt, A, B, C) against its plain version: y and
     final state within the reference's tolerances, kernel (CUDA events),
     device (profiler), plain and bound times; ``first_design``: also the
@@ -1529,8 +1620,8 @@ def ssd_row(torch, name, args, *, first_design=False):
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     dtype = str(x.dtype).split(".")[-1]
-    kern = lambda: ops.ssd_scan(*args, chunk=SSD_CHUNK, return_state=True)
-    plain = lambda: ssd_reference(*args, chunk=SSD_CHUNK)
+    kern = lambda: ops.ssd_scan(*args, chunk=chunk, return_state=True)
+    plain = lambda: ssd_reference(*args, chunk=chunk)
     y, state = kern()
     torch.cuda.synchronize()
     want_y, want_state = plain()
@@ -1542,8 +1633,8 @@ def ssd_row(torch, name, args, *, first_design=False):
     if not (ratio <= 1.0 and np.isfinite(err_y) and np.isfinite(err_state)):
         fail(f"ssd_scan {name}: y err {err_y}, state err {err_state}, "
              f"{ratio:.3g} of the tolerance {tol} (atol and rtol)")
-    b_ms, b_by, terms = ssd_bound(b, s, h, p, g, n, dtype)
-    row = dict(b=b, s=s, h=h, p=p, g=g, n=n, chunk=SSD_CHUNK,
+    b_ms, b_by, terms = ssd_bound(b, s, h, p, g, n, dtype, chunk)
+    row = dict(b=b, s=s, h=h, p=p, g=g, n=n, chunk=chunk,
                dtype=dtype, max_abs_err=err_y,
                max_abs_err_state=err_state, tol_ratio=ratio,
                max_abs_y=float(want_y.float().abs().max()),
@@ -1562,11 +1653,12 @@ def ssd_row(torch, name, args, *, first_design=False):
         # the first design, which the float32 route keeps, on the same
         # inputs with x, B, C in float32
         args32 = (x.float(), dt_, A, B.float(), C.float())
-        first = lambda: ops.ssd_scan(*args32, chunk=SSD_CHUNK,
+        first = lambda: ops.ssd_scan(*args32, chunk=chunk,
                                      return_state=True)
         row.update(first_design_ms=time_ms(torch, first, samples=5, inner=5),
                    first_design_device_ms=device_ms(torch, first, SSD_PREFIX))
-    print(f"[ssd] {name} b={b} s={s} h={h} p={p} g={g} n={n} {dtype}: "
+    print(f"[ssd] {name} b={b} s={s} h={h} p={p} g={g} n={n} chunk={chunk} "
+          f"{dtype}: "
           f"y max_abs_err={err_y:.3g} (|y| max {row['max_abs_y']:.3g}), "
           f"state max_abs_err={err_state:.3g}, {ratio:.3g} of the "
           f"tolerance; ms={row['ms']} device_ms={row['device_ms']} "
@@ -1582,11 +1674,39 @@ def ssd_row(torch, name, args, *, first_design=False):
 
 def phase_ssd(torch):
     """12. K5 against its plain version at every shape of SSD_SHAPES
-    (``ssd_row``), with the first design's times at each bf16 shape."""
+    (``ssd_row``), with the first design's times at each bf16 shape; then
+    at every shape of SSD_DOMAIN_SHAPES in bf16 and in float32; and widths
+    and chunks off the domain refused on the card without a launch."""
+    from repro_torch.kernels.ssd_scan import ops
     rows = {name: ssd_row(torch, name, ssd_operands(torch, *shape, seed=i),
                           first_design=True)
             for i, (name, shape) in enumerate(SSD_SHAPES.items())}
     faster_than_first(rows["mamba2_bf16"], "ssd_scan mamba2_bf16")
+    for i, (name, (*dims, chunk)) in enumerate(SSD_DOMAIN_SHAPES.items()):
+        for dtype in ("bfloat16", "float32"):
+            tag = f"{name}_{'bf16' if dtype == 'bfloat16' else 'f32'}"
+            rows[tag] = ssd_row(torch, tag, ssd_operands(
+                torch, *dims, dtype, seed=100 + i), chunk=chunk)
+    x, dt_, A, B, C = ssd_operands(torch, 1, 64, 2, 64, 1, 64, "bfloat16",
+                                   seed=0)
+    for what, args, chunk in (
+            ("chunk 40", (x, dt_, A, B, C), 40),
+            ("chunk 256", (x, dt_, A, B, C), 256),
+            ("head dim 72", (torch.cat([x, x[..., :8]], -1), dt_, A, B, C),
+             128),
+            ("state dim 36", (x, dt_, A, B[..., :36].contiguous(),
+                              C[..., :36].contiguous()), 128)):
+        before = ops.ssd_scan.launches
+        try:
+            ops.ssd_scan(*args, chunk=chunk)
+        except ValueError:
+            pass
+        else:
+            fail(f"ssd_scan took {what}, off its domain")
+        if ops.ssd_scan.launches != before:
+            fail(f"ssd_scan launched at {what}")
+    print("[ssd] chunks 40 and 256, head dim 72 and state dim 36 refused "
+          "with ValueError, no launch")
     return rows
 
 
@@ -3409,6 +3529,8 @@ def expected_prefill_launches(cfg):
     if cfg.family == "hybrid":
         return {"flash_attention": cfg.n_layers // cfg.attn_every,
                 "ssd_scan": cfg.n_layers}
+    if cfg.family == "ssm":
+        return {"flash_attention": 0, "ssd_scan": cfg.n_layers}
     if cfg.family == "encdec":
         return {"flash_attention": cfg.n_dec_layers, "ssd_scan": 0}
     if cfg.use_mla:
@@ -4768,6 +4890,164 @@ def phase_dryrun(torch, card):
         "peak_traced": mem["peak_live_bytes"], "peak_card": peak}
 
 
+def smoke_cli(arch):
+    """``serve --smoke`` for ``arch`` as README.md gives it, started in a
+    process of its own (the kernels phase 2 built)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in [os.environ.get(
+            "PYTHONPATH")] if p]))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--smoke", "--batch", str(SMOKE_BATCH), "--prompt-len",
+         str(SMOKE_PROMPT), "--gen", str(SMOKE_GEN)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def smoke_logit_gaps(torch, cfg, params):
+    """The prefill logits of ``cfg`` on the card (through K4 and K5) and on
+    the CPU (their plain versions) from the same ``params`` and serve()'s
+    prompts, in bf16 as drawn and in float32 (the parameters lifted; the
+    enc-dec's fixed bf16 activations lifted too, as
+    tests/test_torch_encdec_serve.py lifts both packages'): per dtype the
+    max abs gap, its ratio to SMOKE_TOL (atol and rtol in bf16, atol in
+    float32), and the launches of the card's prefill."""
+    import copy
+    from unittest import mock
+    from repro_torch.launch.serve import draw_prompts, prompts_on
+    from repro_torch.models import encdec, get_model
+    model = get_model(cfg)
+    draws = draw_prompts(cfg, SMOKE_BATCH, SMOKE_PROMPT, SERVE_SEED)
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        p_card = params if dtype == "bfloat16" else copy.deepcopy(
+            params).float()
+        act = torch.float32 if dtype == "float32" else encdec.ACT_DTYPE
+        logits = {}
+        with mock.patch.object(encdec, "ACT_DTYPE", act), \
+                torch.inference_mode():
+            for dev in ("cuda", "cpu"):
+                p_dev = p_card if dev == "cuda" else copy.deepcopy(
+                    p_card).cpu()
+                if dev == "cuda":
+                    reset_launches()
+                logits[dev], _ = model.prefill(
+                    p_dev, prompts_on(draws, dev),
+                    model.init_cache(SMOKE_BATCH, SMOKE_PROMPT + SMOKE_GEN,
+                                     device=dev))
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    launches = read_launches()
+        got, want = logits["cuda"].float().cpu(), logits["cpu"].float()
+        tol = SMOKE_TOL[dtype]
+        rtol = tol if dtype == "bfloat16" else 0.0
+        gap = (got - want).abs()
+        out[dtype] = dict(
+            max_abs_diff=float(gap.max()),
+            tol_ratio=float((gap / (tol + rtol * want.abs())).max()),
+            finite=bool(torch.isfinite(got).all()),
+            argmax_agree=float((got.argmax(-1) == want.argmax(-1))
+                               .float().mean()),
+            launches=launches)
+    return out
+
+
+def phase_smoke_serving(torch, card):
+    """28. Every arch's SMOKE config served as ``serve --smoke`` serves it:
+    the command line in a subprocess per arch (started together, each
+    must exit 0), and in process serve(served_config(SMOKE config)) at
+    its request (SMOKE_BATCH prompts of SMOKE_PROMPT tokens, SMOKE_GEN
+    greedy tokens) with K4 and K5 counted: K4 once per causal
+    self-attention layer of a prefill (none for MLA, none for seamless's
+    encoder and cross layers), K5 once per Mamba2 layer, neither in a
+    decode step; then the prefill logits on the card against the CPU from
+    the same weights within SMOKE_TOL (``smoke_logit_gaps``)."""
+    from repro_torch.configs import ARCHS, get_smoke_config
+    from repro_torch.launch.serve import (draw_prompts, prompts_on, serve,
+                                          served_config)
+    from repro_torch.models import get_model
+    t0 = time.perf_counter()
+    clis = {arch: smoke_cli(arch) for arch in ARCHS}
+    rows, launches = {}, {}
+    for arch in ARCHS:
+        cfg = served_config(get_smoke_config(arch))
+        want = expected_prefill_launches(cfg)
+        model = get_model(cfg)
+        params = model.init(SERVE_SEED)
+        reset_launches()
+        toks, info = serve(cfg, batch=SMOKE_BATCH, prompt_len=SMOKE_PROMPT,
+                           gen=SMOKE_GEN, seed=SERVE_SEED, params=params)
+        torch.cuda.synchronize()
+        launches[arch] = read_launches()
+        if launches[arch] != {**{k: 0 for k in launches[arch]}, **want}:
+            fail(f"smoke serving {arch} launched "
+                 f"{json.dumps(launches[arch])}, expected {json.dumps(want)}"
+                 f" (one prefill)")
+        if tuple(toks.shape) != (SMOKE_BATCH, SMOKE_GEN) or not (
+                0 <= int(toks.min()) and int(toks.max()) < cfg.vocab):
+            fail(f"smoke serving {arch} returned tokens "
+                 f"{tuple(toks.shape)} out of range")
+        # one decode step launches neither kernel
+        with torch.inference_mode():
+            draws = draw_prompts(cfg, SMOKE_BATCH, SMOKE_PROMPT, SERVE_SEED)
+            logits, cache = model.prefill(
+                params, prompts_on(draws, "cuda"),
+                model.init_cache(SMOKE_BATCH, SMOKE_PROMPT + SMOKE_GEN))
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            reset_launches()
+            model.decode_step(params, cache, tok)
+            torch.cuda.synchronize()
+            n_decode = read_launches()
+        if any(n_decode.values()):
+            fail(f"a decode step of smoke {arch} launched "
+                 f"{json.dumps(n_decode)}")
+        if not torch.equal(tok[:, 0], toks[:, 0]):
+            fail(f"smoke {arch}: the same weights and prompts did not give "
+                 f"serve's first tokens")
+        gaps = smoke_logit_gaps(torch, cfg, params)
+        for dtype, g in gaps.items():
+            if g["launches"] != {**{k: 0 for k in g["launches"]}, **want}:
+                fail(f"smoke {arch} {dtype} prefill launched "
+                     f"{json.dumps(g['launches'])}, expected "
+                     f"{json.dumps(want)}")
+            if not (g["finite"] and g["tol_ratio"] <= 1.0):
+                fail(f"smoke {arch} {dtype}: card against CPU logits "
+                     f"{json.dumps(g)}, limit {SMOKE_TOL[dtype]}")
+        rows[arch] = dict(family=cfg.family, n_layers=cfg.n_layers,
+                          head_dim=cfg.head_dim, launches=launches[arch],
+                          expected=want, info=info, logits=gaps)
+        print(f"[smoke serve] {arch} ({cfg.family}, attn_backend="
+              f"{cfg.attn_backend}): launches {json.dumps(launches[arch])}; "
+              f"prefill {info['prefill_s']:.4f} s, decode "
+              f"{info['decode_s']:.4f} s; card vs CPU prefill logits "
+              + json.dumps({d: {k: g[k] for k in ("max_abs_diff",
+                                                   "tol_ratio",
+                                                   "argmax_agree")}
+                            for d, g in gaps.items()}))
+        del params, model
+    failed = {}
+    for arch, proc in clis.items():
+        try:
+            out, err = proc.communicate(timeout=max(
+                1.0, SMOKE_CLI_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+            failed[arch] = f"no exit within {SMOKE_CLI_TIMEOUT_S} s"
+            continue
+        line = (out.strip().splitlines() or [""])[-1]
+        print(f"[smoke cli] {arch}: exit {proc.returncode}: {line}")
+        want = f"[serve] generated ({SMOKE_BATCH}, {SMOKE_GEN}) tokens"
+        if proc.returncode != 0 or not line.startswith(want):
+            failed[arch] = f"exit {proc.returncode}: {err.strip()[-600:]}"
+    if failed:
+        fail(f"serve --smoke failed: {json.dumps(failed)}")
+    print(f"[smoke serve] {len(ARCHS)} archs served in process and by the "
+          f"command line on {card}; K4 launches "
+          f"{sum(n['flash_attention'] for n in launches.values())}, K5 "
+          f"{sum(n['ssd_scan'] for n in launches.values())}")
+    return dict(rows=rows, launches=launches)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5057,6 +5337,9 @@ def main():
     # --- 27. the dry run: meta DTensors on a fake world, then the card -----
     dr = phase_dryrun(torch, card)
     lap(27)
+    # --- 28. serve --smoke: every arch's SMOKE config through K4 and K5 ----
+    sm = phase_smoke_serving(torch, card)
+    lap(28)
     print(f"[wall] per phase s {json.dumps(walls)}; total "
           f"{sum(walls.values()):.2f} s")
     print(f"[profiler] device_spread windows: {PROFILER_WINDOWS['calls']} "
@@ -5162,8 +5445,11 @@ def main():
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:31",
         "launches": sv["launches"]["flash_attention"] + sum(
-            f["launches"]["flash_attention"] for f in fam.values()),
+            f["launches"]["flash_attention"] for f in fam.values()) + sum(
+            n["flash_attention"] for n in sm["launches"].values()),
         "launches_smollm": sv["launches"]["flash_attention"],
+        **{f"launches_smoke_{a}": n["flash_attention"]
+           for a, n in sm["launches"].items()},
         **{f"launches_{a}": f["launches"]["flash_attention"]
            for a, f in fam.items()},
         "max_abs_err": max([r["max_abs_err"] for r in k4.values()]
@@ -5175,7 +5461,7 @@ def main():
         **{k: row[k] for k in ("B", "S", "Hq", "Hkv", "D", "window",
                                "dtype", "device_ms", "first_design_ms",
                                "first_design_device_ms", "bound_terms")},
-        "sass": sass["flash_attention"],
+        "sass": sass["flash_attention"], "card": card,
     })
     for name, r in k4.items():
         if name != "smollm_bf16":
@@ -5190,8 +5476,11 @@ def main():
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:27",
         "launches": mb["launches"]["ssd_scan"] + sum(
-            f["launches"]["ssd_scan"] for f in fam.values()),
+            f["launches"]["ssd_scan"] for f in fam.values()) + sum(
+            n["ssd_scan"] for n in sm["launches"].values()),
         "launches_mamba2": mb["launches"]["ssd_scan"],
+        **{f"launches_smoke_{a}": n["ssd_scan"]
+           for a, n in sm["launches"].items() if n["ssd_scan"]},
         **{f"launches_{a}": fam[a]["launches"]["ssd_scan"] for a in k5_path},
         "max_abs_err": max(r["max_abs_err"] for r in
                            [*k5.values(), *k5_path.values()]),
@@ -5203,7 +5492,7 @@ def main():
                                "device_ms_max", "device_samples",
                                "first_design_ms", "first_design_device_ms",
                                "max_abs_err_state", "bound_terms")},
-        "sass": sass["ssd_scan"],
+        "sass": sass["ssd_scan"], "card": card,
     })
     for name, r in k5.items():
         if name != "mamba2_bf16":
@@ -5219,6 +5508,7 @@ def main():
         "max_memory_allocated", "losses") if k in r}
         for a, r in tl.items() if a in TRAIN_LAST}))
     print("[dryrun] " + json.dumps(dr))
+    print("[smoke serving] " + json.dumps(sm["rows"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

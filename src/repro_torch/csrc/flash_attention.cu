@@ -1,4 +1,5 @@
-// Causal (and sliding-window) flash attention, forward, for Hopper (sm_90a).
+// Flash attention, forward, for Hopper (sm_90a): causal (and
+// sliding-window), or over every key.
 //
 // Replaces the Pallas kernel _fa_kernel of
 // src/repro/kernels/flash_attention/kernel.py:31 (wrapper
@@ -8,7 +9,8 @@
 //
 // What it computes, per (batch, q head), over positions counted from 0:
 //   s[i, j] = (q[i] . k[j]) * scale          scale = 1/sqrt(D), after the dot
-//   live(i, j) = j <= i  and  (no window or i - j < window)  and  j < Skv
+//   live(i, j) = (j <= i where causal)  and  (no window or i - j < window)
+//                and  j < Skv
 //   s = live ? s : -1e30                      (-1e30, not -inf)
 //   out[i] = sum_j p[i, j] v[j] / max(l[i], 1e-30),  p = exp(s - running max)
 // with the reference's online softmax: a running max m, normalizer l and
@@ -19,10 +21,20 @@
 // (rows past S are not stored, keys past Skv are masked), where the
 // reference pads to its block size; for the self-attention it serves
 // (Skv == S) the padded keys sit after every query and are causally masked,
-// so the results are the same.
+// so the results are the same. Without the causal mask (causal = 0: every
+// kv tile, Skv free of S) the keys past Skv are masked by their index; the
+// reference's zero-padded keys would take part in the softmax there
+// (ROADMAP.md, R8), which its own oracle does not do. A window needs the
+// causal mask (the reference's kernel and oracle disagree without it, R9).
 //
 // Layout, in and out: q (B, S, Hq, D), k/v (B, Skv, Hkv, D), o (B, S, Hq, D),
-// contiguous, on 16-byte boundaries. D is a template parameter: 64 and 128.
+// contiguous, on 16-byte boundaries. Each route is instantiated at the panel
+// widths 64 and 128 and runs the next one at or above D: the bf16 route's
+// tensor maps take the true D (a multiple of 8), so that the TMA fills the
+// panel's columns past D with zeros, which add nothing to Q K^T, and its
+// store drops the output's; the float32 route loads and stores those
+// columns under guards (D a multiple of 4). The scale is 1/sqrt(D) of the
+// true D.
 //
 // What bounds it on this card: the operations. Causal prefill is
 // 4 * B * Hq * D * S (S + 1) / 2 operations against q, k, v and o read or
@@ -50,7 +62,8 @@
 // Where Hq / Hkv is even they take the same 64 positions of two q heads of one
 // kv head, whose causal extents are equal; otherwise 128 consecutive positions
 // of one head. The walk runs over the kv tiles that hold a live key for some
-// row of the block (from the window's first live tile to the diagonal), and a
+// row of the block (from the window's first live tile to the diagonal, or
+// every tile without the causal mask), and a
 // consumer whose rows have none in a tile skips its products there (it still
 // waits on and releases the stage). Per tile, a consumer computes S = Q K^T by
 // wgmma m64n128k16 with both operands read from shared memory through
@@ -106,19 +119,19 @@ static_assert(kBQ == kBK, "the tiles of q and kv have one height");
 constexpr int kF32Threads = 256;  // 16 row groups of 4 rows x 16 lanes
 constexpr int kPld = kBK + 4;     // padded row of the probability tile
 
-// Rows row0 .. row0 + 63 of a (rows, D) matrix whose rows are row_stride
-// elements apart, into a float32 tile with rows D + 4 floats apart; rows at
-// or past n_rows are zero.
+// Rows row0 .. row0 + 63 of a (rows, d) matrix whose rows are row_stride
+// elements apart, into a float32 tile of D columns with rows D + 4 floats
+// apart; rows at or past n_rows and columns at or past d are zero.
 template <int D>
 __device__ void load_tile_f32(const float* __restrict__ base,
                               long long row_stride, int row0, int n_rows,
-                              float* tile) {
+                              int d, float* tile) {
   constexpr int kChunksPerRow = D / 4;
   for (int c = threadIdx.x; c < kBK * kChunksPerRow; c += kF32Threads) {
     const int r = c / kChunksPerRow;
     const int e = (c % kChunksPerRow) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows)
+    if (row0 + r < n_rows && e < d)
       v = *reinterpret_cast<const float4*>(base + (row0 + r) * row_stride + e);
     *reinterpret_cast<float4*>(tile + r * (D + 4) + e) = v;
   }
@@ -130,7 +143,8 @@ __global__ void __launch_bounds__(kF32Threads)
                                const float* __restrict__ k,
                                const float* __restrict__ v,
                                float* __restrict__ o, int S, int Skv, int Hq,
-                               int Hkv, int window, float scale) {
+                               int Hkv, int d, int causal, int window,
+                               float scale) {
   constexpr int kLd = D + 4;     // padded row of the q, k and v tiles
   constexpr int kCols = D / 16;  // accumulator columns per thread
   extern __shared__ float4 smem4[];
@@ -145,12 +159,13 @@ __global__ void __launch_bounds__(kF32Threads)
   const int hk = h / (Hq / Hkv);
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
-  const long long q_stride = (long long)Hq * D;
-  const long long kv_stride = (long long)Hkv * D;
-  const float* kb = k + ((long long)b * Skv * Hkv + hk) * D;
-  const float* vb = v + ((long long)b * Skv * Hkv + hk) * D;
+  const long long q_stride = (long long)Hq * d;
+  const long long kv_stride = (long long)Hkv * d;
+  const float* kb = k + ((long long)b * Skv * Hkv + hk) * d;
+  const float* vb = v + ((long long)b * Skv * Hkv + hk) * d;
 
-  load_tile_f32<D>(q + ((long long)b * S * Hq + h) * D, q_stride, q0, S, Qs);
+  load_tile_f32<D>(q + ((long long)b * S * Hq + h) * d, q_stride, q0, S, d,
+                   Qs);
 
   float m[4], l[4], acc[4][kCols];
 #pragma unroll
@@ -161,16 +176,18 @@ __global__ void __launch_bounds__(kF32Threads)
     for (int cc = 0; cc < kCols; ++cc) acc[r][cc] = 0.f;
   }
 
-  // the kv tiles that hold a live key for some row of this q tile
-  const int kt_end = min((Skv + kBK - 1) / kBK, (q0 + kBQ - 1) / kBK + 1);
+  // the kv tiles that hold a live key for some row of this q tile: every
+  // tile without the causal mask
+  int kt_end = (Skv + kBK - 1) / kBK;
+  if (causal) kt_end = min(kt_end, (q0 + kBQ - 1) / kBK + 1);
   int kt_begin = 0;
   if (window > 0 && q0 - (window - 1) > 0) kt_begin = (q0 - (window - 1)) / kBK;
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the last tile's reads of Ks, Vs and Ps are done
-    load_tile_f32<D>(kb, kv_stride, k0, Skv, Ks);
-    load_tile_f32<D>(vb, kv_stride, k0, Skv, Vs);
+    load_tile_f32<D>(kb, kv_stride, k0, Skv, d, Ks);
+    load_tile_f32<D>(vb, kv_stride, k0, Skv, d, Vs);
     __syncthreads();
 
     float s[4][4];
@@ -205,7 +222,8 @@ __global__ void __launch_bounds__(kF32Threads)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kj = k0 + tx + 16 * c;
-        const bool live = kj < Skv && kj <= qi && (window <= 0 || qi - kj < window);
+        const bool live = kj < Skv && (!causal || kj <= qi) &&
+                          (window <= 0 || qi - kj < window);
         s[r][c] = live ? s[r][c] * scale : kNegInf;
         mx = fmaxf(mx, s[r][c]);
       }
@@ -259,9 +277,10 @@ __global__ void __launch_bounds__(kF32Threads)
     const int qi = q0 + 4 * ty + r;
     if (qi >= S) continue;
     const float denom = fmaxf(l[r], 1e-30f);
-    float* orow = o + (((long long)b * S + qi) * Hq + h) * D;
+    float* orow = o + (((long long)b * S + qi) * Hq + h) * d;
 #pragma unroll
-    for (int cc = 0; cc < kCols; ++cc) orow[tx + 16 * cc] = acc[r][cc] / denom;
+    for (int cc = 0; cc < kCols; ++cc)
+      if (tx + 16 * cc < d) orow[tx + 16 * cc] = acc[r][cc] / denom;
   }
 }
 
@@ -322,8 +341,9 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
                                  const __grid_constant__ CUtensorMap tk,
                                  const __grid_constant__ CUtensorMap tv,
                                  const __grid_constant__ CUtensorMap to,
-                                 int S, int Skv, int Hq, int Hkv, int window,
-                                 float scale, int pair, int q_fast) {
+                                 int S, int Skv, int Hq, int Hkv, int causal,
+                                 int window, float scale, int pair,
+                                 int q_fast) {
   using L = Bf16Smem<D>;
   constexpr int kPanels = D / kPanel;
   constexpr int kKsteps = D / 16;         // k16 steps of Q K^T
@@ -348,9 +368,10 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
   const int h0 = pair ? 2 * hb : hb;
   const int b = q_fast ? blockIdx.z : blockIdx.y;
   const int hk = h0 / (Hq / Hkv);
-  // the kv tiles that hold a live key for some row of this block
-  const int kt_end =
-      min((Skv + kTileK - 1) / kTileK, (q0 + rows - 1) / kTileK + 1);
+  // the kv tiles that hold a live key for some row of this block: every
+  // tile without the causal mask
+  int kt_end = (Skv + kTileK - 1) / kTileK;
+  if (causal) kt_end = min(kt_end, (q0 + rows - 1) / kTileK + 1);
   int kt_begin = 0;
   if (window > 0 && q0 - (window - 1) > 0)
     kt_begin = (q0 - (window - 1)) / kTileK;
@@ -426,7 +447,7 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
       mbar_wait(k_full + 8 * st, parity);
       // a tile wholly above this consumer's rows or wholly before their
       // window leaves m, l and acc as they are
-      const bool live = k0 <= qa + kWgRows - 1 &&
+      const bool live = (!causal || k0 <= qa + kWgRows - 1) &&
                         (window <= 0 || qa - (k0 + kTileK - 1) < window);
       if (live) {
         wgmma_fence();
@@ -441,11 +462,13 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
         wgmma_wait_all();
 
         // the -1e30 masks, only where the tile crosses the diagonal, a
-        // window's edge or Skv for some row of this consumer; the scale is
-        // folded into the exponent (scale > 0: the max and the masks
-        // commute with it)
-        const bool need_mask = k0 + kTileK - 1 > qa || k0 + kTileK > Skv ||
-                               (window > 0 && qa + kWgRows - 1 - k0 >= window);
+        // window's edge or Skv for some row of this consumer (a key past
+        // Skv comes in as zeros and would score 0: without the causal mask
+        // only its index masks it); the scale is folded into the exponent
+        // (scale > 0: the max and the masks commute with it)
+        const bool need_mask =
+            (causal && k0 + kTileK - 1 > qa) || k0 + kTileK > Skv ||
+            (window > 0 && qa + kWgRows - 1 - k0 >= window);
         if (need_mask) {
 #pragma unroll
           for (int j = 0; j < 16; ++j)
@@ -453,8 +476,8 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
             for (int e = 0; e < 4; ++e) {
               const int qi = row_lo + (e / 2) * 8;
               const int kj = k0 + 8 * j + 2 * tq + (e % 2);
-              const bool ok =
-                  kj < Skv && kj <= qi && (window <= 0 || qi - kj < window);
+              const bool ok = kj < Skv && (!causal || kj <= qi) &&
+                              (window <= 0 || qi - kj < window);
               s[4 * j + e] = ok ? s[4 * j + e] : kNegInf;
             }
         }
@@ -559,8 +582,8 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int Skv, int Hq, int Hkv, int window, float scale,
-               cudaStream_t stream) {
+               int S, int Skv, int Hq, int Hkv, int d, int causal,
+               int window, float scale, cudaStream_t stream) {
   constexpr int smem =
       sizeof(float) * ((kBQ + 2 * kBK) * (D + 4) + kBQ * kPld);
   cudaError_t err = cudaFuncSetAttribute(
@@ -571,13 +594,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   flash_attention_f32_kernel<D><<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, Skv, Hq, Hkv,
-      window, scale);
+      d, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The map of a contiguous bf16 (B, S, H, D) tensor as 4-d (D, H, S, B),
 // boxes of (64 values, 1 head, ``rows`` positions, 1 batch) in the 128B
-// swizzle; false if the encoding is refused
+// swizzle; false if the encoding is refused. With D below the instance's
+// panels the boxes reach past D: a load fills those columns with zeros
+// and a store drops them
 bool bf16_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
               int S, int H, int D, int rows) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
@@ -592,15 +617,15 @@ bool bf16_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int Skv, int Hq, int Hkv, int window, float scale,
-                cudaStream_t stream) {
+                int S, int Skv, int Hq, int Hkv, int d, int causal,
+                int window, float scale, cudaStream_t stream) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv, to;
-  if (!bf16_map(enc, &tq, q, B, S, Hq, D, kWgRows) ||
-      !bf16_map(enc, &tk, k, B, Skv, Hkv, D, kTileK) ||
-      !bf16_map(enc, &tv, v, B, Skv, Hkv, D, kTileK) ||
-      !bf16_map(enc, &to, o, B, S, Hq, D, kWgRows))
+  if (!bf16_map(enc, &tq, q, B, S, Hq, d, kWgRows) ||
+      !bf16_map(enc, &tk, k, B, Skv, Hkv, d, kTileK) ||
+      !bf16_map(enc, &tv, v, B, Skv, Hkv, d, kTileK) ||
+      !bf16_map(enc, &to, o, B, S, Hq, d, kWgRows))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = Bf16Smem<D>::kAlloc;
   cudaError_t err = cudaFuncSetAttribute(
@@ -612,32 +637,43 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   const int rows = pair ? kWgRows : 2 * kWgRows;
   const int q_tiles = (S + rows - 1) / rows;
   const int heads = pair ? Hq / 2 : Hq;
-  const int q_fast = 4ll * B * Skv * Hkv * D > kKvL2Bytes;
+  const int q_fast = 4ll * B * Skv * Hkv * d > kKvL2Bytes;
   const dim3 grid = q_fast ? dim3(q_tiles, heads, B) : dim3(heads, B, q_tiles);
   flash_attention_wgmma_kernel<D><<<grid, kBf16Threads, smem, stream>>>(
-      tq, tk, tv, to, S, Skv, Hq, Hkv, window, scale, pair, q_fast);
+      tq, tk, tv, to, S, Skv, Hq, Hkv, causal, window, scale, pair, q_fast);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // One launch on ``stream``. dtype 0 is float32 (the scalar route), 1 is bf16
-// (the tensor-core route); window 0 means none. Returns the cudaError_t of
-// the launch (0 on success), and cudaErrorInvalidValue for a head dim other
-// than 64 and 128 or another dtype.
+// (the tensor-core route); causal 0 attends to every key below Skv; window
+// 0 means none (a window needs the causal mask). Each route runs the
+// instance of the next panel width, 64 or 128, at or above the head dim D.
+// Returns the cudaError_t of the launch (0 on success), and
+// cudaErrorInvalidValue for a D off the route's domain (bf16: a multiple of
+// 8 from 8 to 128, which TMA's 16-byte strides need; float32: of 4 from 4
+// to 128), a window without the causal mask, or another dtype.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
                                       int Skv, int Hq, int Hkv, int D,
-                                      int window, int dtype, float scale,
-                                      void* stream) {
+                                      int causal, int window, int dtype,
+                                      float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 64)
-    return launch_bf16<64>(q, k, v, o, B, S, Skv, Hq, Hkv, window, scale, st);
-  if (dtype == 1 && D == 128)
-    return launch_bf16<128>(q, k, v, o, B, S, Skv, Hq, Hkv, window, scale, st);
-  if (dtype == 0 && D == 64)
-    return launch_f32<64>(q, k, v, o, B, S, Skv, Hq, Hkv, window, scale, st);
-  if (dtype == 0 && D == 128)
-    return launch_f32<128>(q, k, v, o, B, S, Skv, Hq, Hkv, window, scale, st);
+  const int step = dtype == 1 ? 8 : 4;
+  if (D < step || D > 128 || D % step != 0 || (window > 0 && !causal))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1 && D <= 64)
+    return launch_bf16<64>(q, k, v, o, B, S, Skv, Hq, Hkv, D, causal, window,
+                           scale, st);
+  if (dtype == 1)
+    return launch_bf16<128>(q, k, v, o, B, S, Skv, Hq, Hkv, D, causal, window,
+                            scale, st);
+  if (dtype == 0 && D <= 64)
+    return launch_f32<64>(q, k, v, o, B, S, Skv, Hq, Hkv, D, causal, window,
+                          scale, st);
+  if (dtype == 0)
+    return launch_f32<128>(q, k, v, o, B, S, Skv, Hq, Hkv, D, causal, window,
+                           scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,8 +6,10 @@
 // of the ssm family, where it also returns the final state that the Pallas
 // kernel keeps in VMEM scratch and drops.
 //
-// What it computes, per (batch, head), walking the chunks of Q = 128
-// positions in order and carrying h_state (P, N) in float32 from zero:
+// What it computes, per (batch, head), walking the chunks of Q positions
+// in order (Q a multiple of 16 up to 128, the TPU kernel's grid step: the
+// chunked algorithm's rounding depends on Q) and carrying h_state (P, N) in
+// float32 from zero:
 //   dA_cum = cumsum(dt * A)                                   (Q,)
 //   L[i, j] = exp(dA_cum[i] - dA_cum[j]) for i >= j, else exactly 0
 //   y = ((C B^T) .* L) (x * dt) + (C h_state^T) * exp(dA_cum)   (Q, P)
@@ -17,13 +19,21 @@
 // inputs' dtype and, when a pointer is passed, the final h_state
 // (B, H, P, N) in float32. A ragged last chunk is read as zero past S
 // (dt = 0 there: unit decay and no state update), which is what the
-// reference's dt = 0 padding computes; rows past S are not stored.
+// reference's dt = 0 padding computes; rows past S are not stored. Each
+// chunk takes the 128 rows of the routes' tiles, its rows past Q read as
+// zeros with dt = 0 in the same way (x = 0 too, since 0 x NaN is NaN), so
+// a chunk below 128 costs a chunk of 128.
 //
 // Layout: x (B, S, H, P) and B, C (B, S, G, N) with unit stride in their
 // last two axes and any batch and sequence strides that are multiples of 4
 // elements (the model passes views into the conv's output), dt (B, S, H)
-// and A (H,) contiguous float32, y (B, S, H, P) contiguous. P = 64; N a
-// multiple of 32 up to 256.
+// and A (H,) contiguous float32, y (B, S, H, P) contiguous. P a multiple
+// of 8 up to 64 and N a multiple of 8 up to 256: the tiles are 64 columns
+// of x and N in slabs of 64 (bf16) or tiles of 32 (float32), and their
+// columns past P or N are zeros (the bf16 route's tensor maps take the true
+// widths, so that the TMA fills them and its store drops y's; the float32
+// route guards its loads and stores). They leave y and h's live part as
+// they are, and h's padded rows and columns stay exactly 0 across chunks.
 //
 // What bounds it on this card. At mamba2-1.3b's prefill (B=8, S=1024,
 // H=64, P=64, G=1, N=128) the function moves 157.3 MB (x, B, C, dt read
@@ -59,7 +69,11 @@
 //     waits on a scan. A view whose rows are only 8-byte aligned, which
 //     TMA cannot take, is copied by 8-byte cp.async from the producer's 128
 //     threads into the same swizzled layout (each thread waits for its
-//     copies and fences them to the async proxy before it arrives).
+//     copies and fences them to the async proxy before it arrives). A
+//     chunk below 128 positions lands as boxes of Q rows; the tiles' rows
+//     past Q, which no box writes, are zeroed once when the block starts.
+//     Consumer 1's rows are then zero (or the chunk's past 64), and it
+//     stores only those that the chunk has.
 //   - Warpgroups 1 and 2 are the consumers (setmaxnreg.inc), rows 0-63 and
 //     64-127 of each chunk. Per slab, with both operands read from shared
 //     memory through descriptors: S += C B^T on the lower triangle by
@@ -146,17 +160,19 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-// Rows t0 .. t0 + 127 (zero at or past S) of columns col0 .. col0 + 31 of a
-// (S, *) matrix whose rows are row_stride elements apart, into a float32
-// tile with rows kTld floats apart.
+// Rows t0 .. t0 + 127 (zero at or past ``rows``: past S, or past the
+// chunk) of columns col0 .. col0 + 31 (zero at or past n) of a (S, n)
+// matrix whose rows are row_stride elements apart, into a float32 tile with
+// rows kTld floats apart.
 __device__ void load_state_tile(const float* __restrict__ base,
                                 long long row_stride, int t0, int rows,
-                                int col0, float* tile) {
+                                int col0, int n, float* tile) {
   for (int e = threadIdx.x; e < kQ * (kNT / 4); e += kThreads) {
     const int r = e / (kNT / 4);
     const int c = (e % (kNT / 4)) * 4;
-    const float4 v = r < rows ? load4(base + (t0 + r) * row_stride + col0 + c)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 v = r < rows && col0 + c < n
+                         ? load4(base + (t0 + r) * row_stride + col0 + c)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
     *reinterpret_cast<float4*>(tile + r * kTld + c) = v;
   }
 }
@@ -168,9 +184,12 @@ __global__ void __launch_bounds__(kThreads, 1)
                         const float* __restrict__ Bm,
                         const float* __restrict__ Cm, float* __restrict__ y,
                         float* __restrict__ state_out, int S, int H, int G,
-                        int N, long long x_sb, long long x_ss, long long b_sb,
-                        long long b_ss, long long c_sb, long long c_ss) {
-  const int hld = N + 4;  // padded row of h_state
+                        int N, int P, int Q, long long x_sb, long long x_ss,
+                        long long b_sb, long long b_ss, long long c_sb,
+                        long long c_ss) {
+  // the state's columns in tiles of kNT (zero past N), its rows padded by 4
+  const int n_tiled = (N + kNT - 1) / kNT * kNT;
+  const int hld = n_tiled + 4;
   extern __shared__ float4 smem4[];
   float* Ss = reinterpret_cast<float*>(smem4);  // kQ x kSld: (C B^T) .* L
   float* Xs = Ss + kQ * kSld;                   // kQ x kP: x * dt
@@ -189,18 +208,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tx = tid % 16;
   const float a = A[hh];
 
-  const float* xb = x + b * x_sb + (long long)hh * kP;
+  const float* xb = x + b * x_sb + (long long)hh * P;
   const float* dtb = dt + (long long)b * S * H + hh;
   const float* bb = Bm + b * b_sb + (long long)grp * N;
   const float* cb = Cm + b * c_sb + (long long)grp * N;
-  float* yb = y + ((long long)b * S * H + hh) * kP;
+  float* yb = y + ((long long)b * S * H + hh) * P;
 
   for (int i = tid; i < kP * hld; i += kThreads) Hs[i] = 0.f;
 
-  const int n_chunks = (S + kQ - 1) / kQ;
+  // chunks of Q positions, each in the 128 rows of the tiles: rows past
+  // the chunk (or past S) read as zeros with dt = 0
+  const int n_chunks = (S + Q - 1) / Q;
   for (int ci = 0; ci < n_chunks; ++ci) {
-    const int t0 = ci * kQ;
-    const int rows = min(kQ, S - t0);
+    const int t0 = ci * Q;
+    const int rows = min(Q, S - t0);
     __syncthreads();  // the last chunk's reads of Ss, Xs, cum, dts are done
 
     // 1. dt and the cumulative sum of dA over the chunk (warp 0)
@@ -231,8 +252,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int e = tid; e < kQ * (kP / 4); e += kThreads) {
       const int r = e / (kP / 4);
       const int c = (e % (kP / 4)) * 4;
-      float4 v = r < rows ? load4(xb + (t0 + r) * x_ss + c)
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 v = r < rows && c < P ? load4(xb + (t0 + r) * x_ss + c)
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
       const float d = dts[r];
       v.x *= d;
       v.y *= d;
@@ -253,10 +274,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int c = 0; c < 4; ++c) yacc[r][c] = 0.f;
     }
-    for (int n0 = 0; n0 < N; n0 += kNT) {
+    for (int n0 = 0; n0 < n_tiled; n0 += kNT) {
       __syncthreads();  // the last tile's reads and h updates are done
-      load_state_tile(cb, c_ss, t0, rows, n0, Cs);
-      load_state_tile(bb, b_ss, t0, rows, n0, Bs);
+      load_state_tile(cb, c_ss, t0, rows, n0, N, Cs);
+      load_state_tile(bb, b_ss, t0, rows, n0, N, Bs);
       __syncthreads();
 #pragma unroll 2
       for (int d = 0; d < kNT; d += 4) {
@@ -334,30 +355,31 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       if (i < rows) {
         const float decay = expf(cum[i]);
-        float* yrow = yb + (long long)(t0 + i) * H * kP;
+        float* yrow = yb + (long long)(t0 + i) * H * P;
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          yrow[tx + 16 * c] = acc[c] + yacc[r][c] * decay;
+          if (tx + 16 * c < P) yrow[tx + 16 * c] = acc[c] + yacc[r][c] * decay;
       }
     }
   }
 
   if (state_out != nullptr) {
     __syncthreads();  // the last tile's h updates are done
-    float* sb = state_out + ((long long)b * H + hh) * kP * N;
-    for (int i = tid; i < kP * N; i += kThreads)
+    float* sb = state_out + ((long long)b * H + hh) * P * N;
+    for (int i = tid; i < P * N; i += kThreads)
       sb[i] = Hs[(i / N) * hld + i % N];
   }
 }
 
 int launch_f32(const void* x, const float* dt, const float* A, const void* B,
                const void* C, void* y, float* state, int batch, int S, int H,
-               int G, int N, long long x_sb, long long x_ss, long long b_sb,
-               long long b_ss, long long c_sb, long long c_ss,
+               int G, int N, int P, int Q, long long x_sb, long long x_ss,
+               long long b_sb, long long b_ss, long long c_sb, long long c_ss,
                cudaStream_t stream) {
+  const int n_tiled = (N + kNT - 1) / kNT * kNT;
   const int smem = static_cast<int>(
-      sizeof(float) * (kQ * kSld + kQ * kP + 2 * kQ * kTld + kP * (N + 4) +
-                       3 * kQ));
+      sizeof(float) * (kQ * kSld + kQ * kP + 2 * kQ * kTld +
+                       kP * (n_tiled + 4) + 3 * kQ));
   cudaError_t err = cudaFuncSetAttribute(
       ssd_scan_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -365,7 +387,7 @@ int launch_f32(const void* x, const float* dt, const float* A, const void* B,
   ssd_scan_f32_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(x), dt, A, static_cast<const float*>(B),
       static_cast<const float*>(C), static_cast<float*>(y), state, S, H, G, N,
-      x_sb, x_ss, b_sb, b_ss, c_sb, c_ss);
+      P, Q, x_sb, x_ss, b_sb, b_ss, c_sb, c_ss);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -424,6 +446,8 @@ struct SsdArgs {
   float* state;
   long long x_sb, x_ss, b_sb, b_ss, c_sb, c_ss;
   int batch, S, H, G, N;
+  int P;            // head dim: the x tile's columns past P read as zeros
+  int Q;            // chunk: a tile's rows past Q read as zeros
   int tma;          // 1: TMA boxes; 0: 8-byte cp.async (views on 8 bytes)
   int slab_stages;  // depth of the B and C ring
 };
@@ -495,7 +519,7 @@ __device__ __forceinline__ WgCtx wg_context(const SsdArgs& a) {
   w.head = blockIdx.x;
   w.grp = w.head / (a.H / a.G);
   w.b = blockIdx.y;
-  w.n_chunks = (a.S + kQ - 1) / kQ;
+  w.n_chunks = (a.S + a.Q - 1) / a.Q;
   return w;
 }
 
@@ -556,13 +580,13 @@ __device__ __forceinline__ uint32_t scale_bf16(uint32_t u, float2 w) {
   return pack_bf16(f.x * w.x, f.y * w.y);
 }
 
-// Chunk ci's dt into 4 positions a lane (zero past S and for chunks past
-// the last), by plain loads: one head's dt is 4 bytes wide, under TMA's
-// 16-byte box
+// Chunk ci's dt into 4 positions a lane (zero past the chunk, past S and
+// for chunks past the last), by plain loads: one head's dt is 4 bytes
+// wide, under TMA's 16-byte box
 __device__ __forceinline__ void load_dt(float (&d)[4], const SsdArgs& a,
                                         const WgCtx& w, int ci, int lane) {
-  const int rows = min(kQ, a.S - ci * kQ);
-  const float* dtb = a.dt + ((long long)w.b * a.S + ci * kQ) * a.H + w.head;
+  const int rows = min(a.Q, a.S - ci * a.Q);
+  const float* dtb = a.dt + ((long long)w.b * a.S + ci * a.Q) * a.H + w.head;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int tt = 4 * lane + j;
@@ -587,18 +611,18 @@ __device__ __forceinline__ void ssd_producer(const CUtensorMap* tx,
   float dn[4];  // the next chunk's dt, 4 positions a lane
   if (t < 32) load_dt(dn, a, w, 0, lane);
   for (int ci = 0; ci < w.n_chunks; ++ci) {
-    const int t0 = ci * kQ;
-    const int rows = min(kQ, a.S - t0);
+    const int t0 = ci * a.Q;
+    const int rows = min(a.Q, a.S - t0);
     const int cs = ci % kChunkStages;
     mbar_wait(w.chunk_empty(cs), ((ci / kChunkStages) & 1) ^ 1);
     if (a.tma) {
-      if (lane == 0) {
-        mbar_expect_tx(w.chunk_full(cs), kTileBytes);
+      if (lane == 0) {  // a box of Q rows
+        mbar_expect_tx(w.chunk_full(cs), a.Q * 128);
         tma_load(w.xtile(cs), tx, w.chunk_full(cs), 0, w.head, t0, w.b);
       }
     } else {
-      copy_tile8(w.xtile(cs), a.x + w.b * a.x_sb + t0 * a.x_ss + w.head * kP,
-                 a.x_ss, rows, kP, t);
+      copy_tile8(w.xtile(cs), a.x + w.b * a.x_sb + t0 * a.x_ss + w.head * a.P,
+                 a.x_ss, rows, a.P, t);
       cp_async_wait_all();
       fence_proxy_async();
     }
@@ -645,7 +669,7 @@ __device__ __forceinline__ void ssd_producer(const CUtensorMap* tx,
       const uint32_t cdst = w.cslab(st);
       if (a.tma) {
         if (lane == 0) {
-          mbar_expect_tx(w.slab_full(st), 2 * kTileBytes);
+          mbar_expect_tx(w.slab_full(st), 2 * a.Q * 128);
           tma_load(cdst, tc, w.slab_full(st), kSlab * sl, w.grp, t0, w.b);
           tma_load(cdst + kTileBytes, tb, w.slab_full(st), kSlab * sl, w.grp,
                    t0, w.b);
@@ -733,7 +757,7 @@ __device__ __forceinline__ void ssd_consumer(const CUtensorMap* ty,
     for (int e = 0; e < 32; ++e) h[sl][e] = 0.f;
 
   for (int ci = 0; ci < w.n_chunks; ++ci) {
-    const int t0 = ci * kQ;
+    const int t0 = ci * a.Q;
     const int cs = ci % kChunkStages;
     mbar_wait(w.chunk_full(cs), (ci / kChunkStages) & 1);
     // below this warp's diagonal tile, L factored around its first row:
@@ -932,7 +956,7 @@ __device__ __forceinline__ void ssd_consumer(const CUtensorMap* ty,
     }
     fence_proxy_async();
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
-    if (t == 0 && t0 + 64 * c < a.S) {
+    if (t == 0 && 64 * c < a.Q && t0 + 64 * c < a.S) {
       tma_store(ty, w.ytile(c), 0, w.head, t0 + 64 * c, w.b);
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     }
@@ -941,7 +965,7 @@ __device__ __forceinline__ void ssd_consumer(const CUtensorMap* ty,
 
   if constexpr (kHolds) {
     if (a.state != nullptr) {
-      float* sb = a.state + ((long long)w.b * a.H + w.head) * kP * a.N;
+      float* sb = a.state + ((long long)w.b * a.H + w.head) * a.P * a.N;
 #pragma unroll
       for (int sl = Hold::lo; sl < Hold::hi; ++sl)
 #pragma unroll
@@ -951,6 +975,7 @@ __device__ __forceinline__ void ssd_consumer(const CUtensorMap* ty,
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             const int p = 16 * warp + g + 8 * r;
+            if (p >= a.P) continue;
             *reinterpret_cast<float2*>(sb + (long long)p * a.N + n) =
                 make_float2(h[sl - Hold::lo][4 * jn + 2 * r],
                             h[sl - Hold::lo][4 * jn + 2 * r + 1]);
@@ -967,8 +992,23 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     ssd_scan_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                           const __grid_constant__ CUtensorMap tb,
                           const __grid_constant__ CUtensorMap tc,
-                          const __grid_constant__ CUtensorMap ty,
+                          const __grid_constant__ CUtensorMap ty0,
+                          const __grid_constant__ CUtensorMap ty1,
                           const SsdArgs a) {
+  if (a.tma && a.Q < kQ) {
+    // a chunk below 128 positions lands as a box of Q rows; the rows past
+    // it, which no box writes, are zeros for the whole walk (dt = 0 alone
+    // would not do: 0 x NaN is NaN)
+    const WgCtx w = wg_context<kNS>(a);
+    const int n16 = kChunkStages * kTileBytes / 16;
+    const int s16 = a.slab_stages * 2 * kTileBytes / 16;
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    for (int i = threadIdx.x; i < n16; i += kWgThreads)
+      reinterpret_cast<uint4*>(w.gbase)[i] = zero;
+    for (int i = threadIdx.x; i < s16; i += kWgThreads)
+      reinterpret_cast<uint4*>(w.gbase + (w.slabs - w.base))[i] = zero;
+    fence_proxy_async();
+  }
   if (threadIdx.x == 0) {
     const WgCtx w = wg_context<kNS>(a);
     const int copy_arrivals = a.tma ? 1 : 128;
@@ -995,36 +1035,43 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   if (wg == 0)
     ssd_producer<kNS>(&tx, &tb, &tc, a);
   else if (wg == 1)
-    ssd_consumer<kNS, 0>(&ty, a);
+    ssd_consumer<kNS, 0>(&ty0, a);
   else
-    ssd_consumer<kNS, 1>(&ty, a);
+    ssd_consumer<kNS, 1>(&ty1, a);
 }
 
 template <int kNS>
 int launch_wgmma(SsdArgs a, cudaStream_t stream) {
   using L = WgSmem<kNS>;
-  CUtensorMap tx{}, tb{}, tc{}, ty{};
+  CUtensorMap tx{}, tb{}, tc{}, ty0{}, ty1{};
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t xd[4] = {kP, static_cast<cuuint64_t>(a.H),
+  const cuuint64_t P = static_cast<cuuint64_t>(a.P);
+  const cuuint64_t xd[4] = {P, static_cast<cuuint64_t>(a.H),
                             static_cast<cuuint64_t>(a.S),
                             static_cast<cuuint64_t>(a.batch)};
-  // y (contiguous) in boxes of (64, 1 head, 64 positions, 1): one
-  // consumer's rows of a chunk; rows past S are not written
-  const cuuint64_t ys[3] = {2ull * kP, 2ull * kP * a.H, 2ull * kP * a.H * a.S};
-  const cuuint32_t ybox[4] = {kP, 1, 64, 1};
-  if (!bf16_map_4d(enc, &ty, a.y, xd, ys, ybox))
+  // y (contiguous) in boxes of (64, 1 head, rows, 1): consumer c's rows of
+  // a chunk, 64 or what the chunk has past 64 c (consumer 1 stores nothing
+  // for a chunk of 64 or fewer); columns past P and rows past S are not
+  // written
+  const cuuint64_t ys[3] = {2ull * P, 2ull * P * a.H, 2ull * P * a.H * a.S};
+  const cuuint32_t ybox0[4] = {
+      kP, 1, static_cast<cuuint32_t>(a.Q < 64 ? a.Q : 64), 1};
+  const cuuint32_t ybox1[4] = {
+      kP, 1, static_cast<cuuint32_t>(a.Q > 64 ? a.Q - 64 : 64), 1};
+  if (!bf16_map_4d(enc, &ty0, a.y, xd, ys, ybox0) ||
+      !bf16_map_4d(enc, &ty1, a.y, xd, ys, ybox1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.tma) {
-    // (64, H, S, batch) boxes of x and (N, G, S, batch) boxes of B and C,
-    // each 64 wide by 128 positions: columns past N and rows past S come
-    // back as zeros
-    const cuuint32_t box[4] = {kSlab, 1, kQ, 1};
+    // (P, H, S, batch) boxes of x and (N, G, S, batch) boxes of B and C,
+    // each 64 wide by Q positions: columns past P or N and rows past S
+    // come back as zeros
+    const cuuint32_t box[4] = {kSlab, 1, static_cast<cuuint32_t>(a.Q), 1};
     const cuuint64_t nd[4] = {static_cast<cuuint64_t>(a.N),
                               static_cast<cuuint64_t>(a.G),
                               static_cast<cuuint64_t>(a.S),
                               static_cast<cuuint64_t>(a.batch)};
-    const cuuint64_t xs[3] = {2ull * kP, 2ull * a.x_ss, 2ull * a.x_sb};
+    const cuuint64_t xs[3] = {2ull * P, 2ull * a.x_ss, 2ull * a.x_sb};
     const cuuint64_t bs[3] = {2ull * a.N, 2ull * a.b_ss, 2ull * a.b_sb};
     const cuuint64_t cs[3] = {2ull * a.N, 2ull * a.c_ss, 2ull * a.c_sb};
     if (!bf16_map_4d(enc, &tx, a.x, xd, xs, box) ||
@@ -1049,7 +1096,7 @@ int launch_wgmma(SsdArgs a, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(a.H, a.batch);
   ssd_scan_wgmma_kernel<kNS><<<grid, kWgThreads, smem, stream>>>(
-      tx, tb, tc, ty, a);
+      tx, tb, tc, ty0, ty1, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1067,29 +1114,32 @@ int launch_bf16(SsdArgs a, cudaStream_t stream) {
 // (x, B, C and y; the tensor-core route); ``state`` may be null (the final
 // state is then not written). Strides are in elements. Returns the
 // cudaError_t of the launch (0 on success), and cudaErrorInvalidValue for a
-// state dim that is not a multiple of 32 up to 256, groups that do not
+// head dim P or state dim N that is not a multiple of 8 up to 64 and 256, a
+// chunk Q that is not a multiple of 16 up to 128, groups that do not
 // divide the heads, or another dtype.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
                                const void* B, const void* C, void* y,
                                void* state, int batch, int S, int H, int G,
-                               int N, long long x_sb, long long x_ss,
-                               long long b_sb, long long b_ss, long long c_sb,
-                               long long c_ss, int dtype, void* stream) {
-  if (N % 32 != 0 || N > 256 || N < 32 || G < 1 || H % G != 0)
+                               int N, int P, int Q, long long x_sb,
+                               long long x_ss, long long b_sb, long long b_ss,
+                               long long c_sb, long long c_ss, int dtype,
+                               void* stream) {
+  if (N % 8 != 0 || N > 256 || N < 8 || P % 8 != 0 || P > kP || P < 8 ||
+      Q % 16 != 0 || Q > kQ || Q < 16 || G < 1 || H % G != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* dtf = static_cast<const float*>(dt);
   const float* Af = static_cast<const float*>(A);
   float* sf = static_cast<float*>(state);
   if (dtype == 0)
-    return launch_f32(x, dtf, Af, B, C, y, sf, batch, S, H, G, N, x_sb, x_ss,
-                      b_sb, b_ss, c_sb, c_ss, st);
+    return launch_f32(x, dtf, Af, B, C, y, sf, batch, S, H, G, N, P, Q, x_sb,
+                      x_ss, b_sb, b_ss, c_sb, c_ss, st);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   SsdArgs a{static_cast<const __nv_bfloat16*>(x),
             static_cast<const __nv_bfloat16*>(B),
             static_cast<const __nv_bfloat16*>(C),
             dtf, Af, static_cast<__nv_bfloat16*>(y), sf,
-            x_sb, x_ss, b_sb, b_ss, c_sb, c_ss, batch, S, H, G, N, 0, 0};
+            x_sb, x_ss, b_sb, b_ss, c_sb, c_ss, batch, S, H, G, N, P, Q, 0, 0};
   // TMA where every row start is on a 16-byte boundary; else cp.async
   a.tma = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(B) % 16 == 0 &&

@@ -1,4 +1,4 @@
-"""Wrapper of causal flash attention (K4).
+"""Wrapper of flash attention (K4).
 
 A CPU tensor goes to the plain version in ``ref.py``; a CUDA tensor
 launches the CUDA kernel (``csrc/flash_attention.cu``) or raises. The
@@ -13,12 +13,14 @@ from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import attention_reference
 
 
-def flash_attention(q, k, v, *, window=None):
+def flash_attention(q, k, v, *, causal=True, window=None):
     """q: (B,S,Hq,D); k/v: (B,Skv,Hkv,D) -> (B,S,Hq,D) in q's dtype.
 
     Causal attention over positions counted from 0 (the prefill path; the
     decode path reads the cache instead), limited to the last ``window``
-    keys when given; GQA when Hkv divides Hq. float32 or bf16."""
+    keys when given; with ``causal=False`` every query attends to all Skv
+    keys (no window). GQA when Hkv divides Hq. float32 or bf16. On CUDA
+    the head dim must pass ``kernel.check_head_dim``."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention takes (B, S, H, D) tensors")
     B, S, Hq, D = q.shape
@@ -33,25 +35,28 @@ def flash_attention(q, k, v, *, window=None):
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if window is not None and (int(window) != window or window < 1):
         raise ValueError(f"window must be a count >= 1, got {window!r}")
+    if window is not None and not causal:
+        # the reference's kernel keeps every later key there and its oracle
+        # drops the window (ROADMAP.md, R9): no one function to port
+        raise ValueError("flash_attention takes a window only with the "
+                         "causal mask (causal=False with a window: R9)")
     devices = {q.device, k.device, v.device}
     if len(devices) != 1:
         raise ValueError(f"flash_attention inputs on several devices: "
                          f"{devices}")
     device = devices.pop()
     if device.type == "cpu":
-        return attention_reference(q, k, v, window=window)
+        return attention_reference(q, k, v, causal=causal, window=window)
     if device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or the CPU, not "
                          f"{device}")
-    if D not in kernel.HEAD_DIMS:
-        raise ValueError(f"the flash_attention kernel takes head dims "
-                         f"{kernel.HEAD_DIMS}, got {D}")
+    kernel.check_head_dim(D, q.dtype)
     for t in (q, k, v):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("flash_attention takes contiguous tensors on "
                              "16-byte boundaries")
-    out = kernel.launch(q, k, v, window=None if window is None
-                        else int(window))
+    out = kernel.launch(q, k, v, causal=bool(causal),
+                        window=None if window is None else int(window))
     flash_attention.launches += 1
     return out
 

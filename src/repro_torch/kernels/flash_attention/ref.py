@@ -4,7 +4,8 @@ against.
 
 It computes what the reference's Pallas kernel ``_fa_kernel`` computes,
 materialized: float32 scores scaled by 1/sqrt(D) after the dot, causal and
-sliding-window masks with the value -1e30, float32 probabilities for the
+sliding-window masks with the value -1e30 (no mask at all with
+``causal=False``, as the reference's oracle), float32 probabilities for the
 product with V (the reference's ``sdpa_full`` casts them to q's dtype
 first; the kernel does not), a divide by max(l, 1e-30), and only the
 output cast to q's dtype. GQA maps kv_head = q_head // group."""
@@ -18,9 +19,11 @@ import torch
 NEG_INF = -1e30
 
 
-def attention_reference(q, k, v, *, window=None):
+def attention_reference(q, k, v, *, causal=True, window=None):
     """q: (B,S,Hq,D); k/v: (B,Skv,Hkv,D) -> (B,S,Hq,D), causal over
-    positions counted from 0, and within ``window`` keys when given."""
+    positions counted from 0, and within ``window`` keys when given; with
+    ``causal=False`` over all Skv keys (the wrapper refuses a window
+    there)."""
     S, Hq, D = q.shape[1], q.shape[2], q.shape[3]
     Skv, Hkv = k.shape[1], k.shape[2]
     group = Hq // Hkv
@@ -30,7 +33,7 @@ def attention_reference(q, k, v, *, window=None):
     s = s * (1.0 / math.sqrt(D))
     qp = torch.arange(S, device=q.device)[:, None]
     kp = torch.arange(Skv, device=q.device)[None, :]
-    ok = qp >= kp
+    ok = (qp >= kp) | (not causal)
     if window is not None:
         ok = ok & (qp - kp < window)
     s = torch.where(ok, s, NEG_INF)

@@ -43,15 +43,7 @@ def _check(x, dt, A, B, C, chunk):
 
 def _check_kernel(x, dt, A, B, C, chunk):
     """What the CUDA kernel takes beyond the wrapper's own checks."""
-    p, n = x.shape[3], B.shape[3]
-    if chunk != kernel.CHUNK or p != kernel.HEAD_DIM:
-        raise ValueError(f"the ssd_scan kernel takes chunk {kernel.CHUNK} "
-                         f"and head dim {kernel.HEAD_DIM}, got chunk {chunk}"
-                         f" and head dim {p}")
-    if n % kernel.STATE_TILE or n > kernel.STATE_MAX:
-        raise ValueError(f"the ssd_scan kernel takes a state dim that is a "
-                         f"multiple of {kernel.STATE_TILE} up to "
-                         f"{kernel.STATE_MAX}, got {n}")
+    kernel.check_widths(x.shape[3], B.shape[3], chunk)
     vec = kernel.VEC
     for name, t in (("x", x), ("B", B), ("C", C)):
         st = t.stride()
@@ -79,7 +71,8 @@ def ssd_scan(x, dt, A, B, C, *, chunk=128, return_state=False):
     if device.type != "cuda":
         raise ValueError(f"ssd_scan runs on CUDA or the CPU, not {device}")
     _check_kernel(x, dt, A, B, C, chunk)
-    out = kernel.launch(x, dt, A, B, C, return_state=return_state)
+    out = kernel.launch(x, dt, A, B, C, chunk=int(chunk),
+                        return_state=return_state)
     ssd_scan.launches += 1
     return out
 

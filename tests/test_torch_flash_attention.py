@@ -22,7 +22,7 @@ torch.set_num_threads(1)
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 
-from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention import kernel, ops
 from repro_torch.kernels.flash_attention.ref import attention_reference
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -119,3 +119,136 @@ def test_cuda_kernel_matches_plain_version(shape, dtype):
     want = attention_reference(q, k, v, window=shape["window"])
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=TOL[dtype])
+
+
+# causal=False: the reference's kernel in interpret mode where it takes the
+# shape without padding keys (Skv at most its 512-key block, or a multiple
+# of it), S != Skv as in a cross-attention
+NONCAUSAL_CASES = [
+    # B, S, Skv, Hq, Hkv, D, blk_q, blk_k (the JAX kernel's blocks)
+    (2, 64, 96, 4, 2, 16, 32, 32),
+    (1, 100, 40, 3, 1, 24, 64, 40),     # ragged S, SMOKE smollm's heads
+    (2, 64, 16, 4, 4, 16, 64, 16),      # seamless's cross shape, SMOKE
+    (1, 48, 1024, 2, 1, 32, 48, 512),   # Skv a multiple of the block
+    (1, 130, 256, 2, 2, 64, 64, 256),
+]
+
+
+@pytest.mark.parametrize("B,S,Skv,Hq,Hkv,D,bq,bk", NONCAUSAL_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_non_causal_matches_interpret_kernel(B, S, Skv, Hq, Hkv, D, bq, bk,
+                                             dtype):
+    rng = np.random.default_rng(S + Skv + D)
+    q, k, v = (rng.normal(0, 1, (B, n, h, D)).astype(np.float32)
+               for n, h in ((S, Hq), (Skv, Hkv), (Skv, Hkv)))
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jax_flash(jnp.asarray(q, jd), jnp.asarray(k, jd),
+                     jnp.asarray(v, jd), causal=False, blk_q=bq, blk_k=bk,
+                     interpret=True)
+    got = ops.flash_attention(*(torch.from_numpy(x).to(td)
+                                for x in (q, k, v)), causal=False)
+    assert got.dtype == td and got.shape == (B, S, Hq, D)
+    np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                               np.asarray(want, np.float32), rtol=0,
+                               atol=TOL[dtype])
+
+
+def test_non_causal_at_a_ragged_kv_length_matches_the_oracle():
+    """Skv = 600 is neither below the reference kernel's 512-key block nor
+    a multiple of it: that kernel pads k and v with zero keys, which take
+    part in its non-causal softmax (R8). The port masks keys past Skv, as
+    the reference's oracle ``attention_reference(causal=False)`` does."""
+    from repro.kernels.flash_attention.ref import attention_reference as jref
+    rng = np.random.default_rng(600)
+    q = rng.normal(0, 1, (1, 16, 2, 16)).astype(np.float32)
+    k, v = (rng.normal(0, 1, (1, 600, 2, 16)).astype(np.float32)
+            for _ in range(2))
+    want = np.asarray(jref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           causal=False), np.float32)
+    got = ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                              causal=False)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL["float32"])
+    padded = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=False,
+                                  interpret=True), np.float32)
+    assert np.abs(padded - want).max() > 1e-3   # R8, as the reference is
+
+
+def test_non_causal_refuses_a_window():
+    q, k, v = (torch.from_numpy(x) for x in operands(1, 8, 2, 2, 16, 0))
+    with pytest.raises(ValueError, match="R9"):
+        ops.flash_attention(q, k, v, causal=False, window=4)
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, causal=False),
+        attention_reference(q, k, v, causal=False), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,good,bad", [
+    ("bfloat16", (8, 16, 24, 64, 72, 80, 96, 120, 128), (4, 12, 130, 136)),
+    ("float32", (4, 12, 16, 24, 64, 68, 100, 128), (2, 6, 132, 256))])
+def test_head_dim_domain(dtype, good, bad):
+    td = getattr(torch, dtype)
+    for D in good:
+        kernel.check_head_dim(D, td)
+    for D in bad:
+        with pytest.raises(ValueError):
+            kernel.check_head_dim(D, td)
+
+
+# the domain on the card: head dims 8-128 at each padded instance (SMOKE's
+# 16 and 24, phi-2's 80 and phi-3-mini's 96), causal and not, Skv != S and
+# ragged, GQA
+CUDA_DOMAIN_SHAPES = [
+    dict(B=2, S=64, Skv=64, Hq=3, Hkv=1, D=24, causal=True, window=None),
+    dict(B=2, S=64, Skv=64, Hq=6, Hkv=1, D=16, causal=True, window=None),
+    dict(B=1, S=200, Skv=200, Hq=4, Hkv=2, D=8, causal=True, window=None),
+    dict(B=1, S=300, Skv=300, Hq=9, Hkv=3, D=80, causal=True, window=None),
+    dict(B=1, S=256, Skv=256, Hq=4, Hkv=4, D=96, causal=True, window=100),
+    dict(B=1, S=130, Skv=130, Hq=2, Hkv=1, D=120, causal=True, window=None),
+    dict(B=1, S=64, Skv=64, Hq=4, Hkv=2, D=16, causal=True, window=16),
+    dict(B=2, S=256, Skv=64, Hq=4, Hkv=4, D=64, causal=False, window=None),
+    dict(B=1, S=130, Skv=600, Hq=4, Hkv=4, D=64, causal=False, window=None),
+    dict(B=1, S=64, Skv=100, Hq=3, Hkv=1, D=24, causal=False, window=None),
+    dict(B=1, S=300, Skv=77, Hq=8, Hkv=2, D=128, causal=False, window=None),
+    dict(B=1, S=50, Skv=300, Hq=2, Hkv=2, D=96, causal=False, window=None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUDA_DOMAIN_SHAPES,
+                         ids=[f"S{s['S']}kv{s['Skv']}D{s['D']}"
+                              f"{'c' if s['causal'] else 'n'}w{s['window']}"
+                              for s in CUDA_DOMAIN_SHAPES])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_over_its_domain(shape, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("cuda: needs a CUDA card and nvcc")
+    td = getattr(torch, dtype)
+    rng = np.random.default_rng(shape["S"] + shape["D"])
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (shape["B"], n, h,
+                                                  shape["D"]))
+                                .astype(np.float32)).to(td).cuda()
+               for n, h in ((shape["S"], shape["Hq"]),
+                            (shape["Skv"], shape["Hkv"]),
+                            (shape["Skv"], shape["Hkv"])))
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=shape["causal"],
+                              window=shape["window"])
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    want = attention_reference(q, k, v, causal=shape["causal"],
+                               window=shape["window"])
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_head_dims_off_its_domain():
+    if not torch.cuda.is_available():
+        pytest.skip("cuda: needs a CUDA card and nvcc")
+    for dtype, D in ((torch.bfloat16, 12), (torch.bfloat16, 136),
+                     (torch.float32, 6), (torch.float32, 256)):
+        q = torch.zeros((1, 16, 2, D), dtype=dtype, device="cuda")
+        before = ops.flash_attention.launches
+        with pytest.raises(ValueError):
+            ops.flash_attention(q, q, q)
+        assert ops.flash_attention.launches == before

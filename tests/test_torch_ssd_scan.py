@@ -26,7 +26,7 @@ torch.set_num_threads(1)
 from repro.kernels.ssd_scan.ops import ssd_scan as jax_ssd_scan
 from repro.nn.ssd import ssd_chunked as jax_ssd_chunked
 
-from repro_torch.kernels.ssd_scan import ops
+from repro_torch.kernels.ssd_scan import kernel, ops
 from repro_torch.kernels.ssd_scan.ref import ssd_reference
 
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
@@ -181,7 +181,7 @@ def test_cuda_kernel_matches_plain_version(shape, dtype):
 def test_cuda_kernel_takes_strided_views_and_refuses_other_widths():
     """The model passes x, B and C as views into the conv's output; the
     kernel reads them in place. It refuses head dims, chunks and state
-    dims it is not built for."""
+    dims off its domain (``kernel.check_widths``)."""
     if not torch.cuda.is_available():
         pytest.skip("cuda: needs a CUDA card and nvcc")
     b, s, h, g, n = 2, 200, 4, 1, 128
@@ -198,13 +198,15 @@ def test_cuda_kernel_takes_strided_views_and_refuses_other_widths():
     torch.testing.assert_close(y.float(), want_y.float(), rtol=5e-2,
                                atol=5e-2)
     torch.testing.assert_close(state, want_state, rtol=5e-2, atol=5e-2)
+    with pytest.raises(ValueError):                       # p = 72
+        ops.ssd_scan(torch.cat([x, x[..., :8]], -1), dt, A, B, C)
     with pytest.raises(ValueError):
-        ops.ssd_scan(x[..., :32].contiguous(), dt, A, B, C)   # p = 32
+        ops.ssd_scan(x, dt, A, B, C, chunk=40)            # not 16 | chunk
     with pytest.raises(ValueError):
-        ops.ssd_scan(x, dt, A, B, C, chunk=64)
+        ops.ssd_scan(x, dt, A, B, C, chunk=256)           # above 128
     with pytest.raises(ValueError):
-        ops.ssd_scan(x, dt, A, B[..., :48].contiguous(),
-                     C[..., :48].contiguous())                # n = 48
+        ops.ssd_scan(x, dt, A, B[..., :36].contiguous(),
+                     C[..., :36].contiguous())                # n = 36
 
 
 @pytest.mark.cuda
@@ -229,6 +231,79 @@ def test_cuda_kernel_takes_views_on_8_byte_boundaries():
     torch.cuda.synchronize()
     assert ops.ssd_scan.launches == before + 1
     want_y, want_state = ssd_reference(x, dt, A, B, C)
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=5e-2,
+                               atol=5e-2)
+    torch.testing.assert_close(state, want_state, rtol=5e-2, atol=5e-2)
+
+
+def test_width_and_chunk_domain():
+    for p, n, chunk in ((8, 8, 16), (16, 16, 16), (64, 128, 64),
+                        (40, 72, 48), (64, 256, 128), (24, 200, 112)):
+        kernel.check_widths(p, n, chunk)
+    for p, n, chunk in ((72, 128, 128), (4, 16, 16), (12, 16, 16),
+                        (64, 260, 128), (64, 12, 128), (64, 0, 128),
+                        (64, 128, 40), (64, 128, 8), (64, 128, 144)):
+        with pytest.raises(ValueError):
+            kernel.check_widths(p, n, chunk)
+
+
+# the domain on the card: SMOKE mamba2's widths at chunk 16, chunk 64 at
+# the path's widths, and other chunks, head dims and state dims off the
+# 64-column panels, ragged S, groups
+CUDA_DOMAIN_SHAPES = [
+    dict(b=2, s=64, h=8, p=16, g=1, n=16, chunk=16),     # SMOKE mamba2
+    dict(b=1, s=300, h=4, p=64, g=1, n=128, chunk=64),   # ragged
+    dict(b=1, s=256, h=2, p=8, g=1, n=8, chunk=32),
+    dict(b=1, s=200, h=4, p=40, g=2, n=72, chunk=48),
+    dict(b=1, s=250, h=3, p=64, g=1, n=200, chunk=80),   # n over 4 slabs
+    dict(b=2, s=100, h=2, p=24, g=1, n=96, chunk=112),
+    dict(b=1, s=384, h=2, p=56, g=1, n=136, chunk=128),
+    dict(b=1, s=20, h=2, p=16, g=1, n=16, chunk=16)]     # one ragged chunk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUDA_DOMAIN_SHAPES,
+                         ids=[f"s{s['s']}p{s['p']}n{s['n']}q{s['chunk']}"
+                              for s in CUDA_DOMAIN_SHAPES])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_over_its_domain(shape, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("cuda: needs a CUDA card and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dims = [shape[k] for k in ("b", "s", "h", "p", "g", "n")]
+    _, t = _both(operands(*dims, seed=shape["s"] + shape["n"]), dtype)
+    args = [a.cuda() for a in t]
+    before = ops.ssd_scan.launches
+    y, state = ops.ssd_scan(*args, chunk=shape["chunk"], return_state=True)
+    torch.cuda.synchronize()
+    assert ops.ssd_scan.launches == before + 1
+    want_y, want_state = ssd_reference(*args, chunk=shape["chunk"])
+    assert state.shape == want_state.shape
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    torch.testing.assert_close(state, want_state, rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", [0, 4], ids=["tma", "cp_async"])
+def test_cuda_kernel_takes_smoke_views_at_chunk_16(pad):
+    """SMOKE mamba2's mixer: x, B and C views into the conv's output at
+    p = n = 16, chunk 16, on 16-byte row boundaries (TMA boxes of 16 rows)
+    and on 8-byte ones (cp.async)."""
+    if not torch.cuda.is_available():
+        pytest.skip("cuda: needs a CUDA card and nvcc")
+    b, s, h, p, g, n = 2, 64, 8, 16, 1, 16
+    _, t = _both(operands(b, s, h, p, g, n, seed=pad), "bfloat16")
+    x, dt, A, B, C = [a.cuda() for a in t]
+    tail = torch.zeros((b, s, pad), dtype=x.dtype, device=x.device)
+    xbc = torch.cat([x.reshape(b, s, -1), B.reshape(b, s, -1),
+                     C.reshape(b, s, -1), tail], dim=-1)
+    xv = xbc[..., :h * p].reshape(b, s, h, p)
+    Bv = xbc[..., h * p:h * p + g * n].reshape(b, s, g, n)
+    Cv = xbc[..., h * p + g * n:h * p + 2 * g * n].reshape(b, s, g, n)
+    y, state = ops.ssd_scan(xv, dt, A, Bv, Cv, chunk=16, return_state=True)
+    want_y, want_state = ssd_reference(x, dt, A, B, C, chunk=16)
     torch.testing.assert_close(y.float(), want_y.float(), rtol=5e-2,
                                atol=5e-2)
     torch.testing.assert_close(state, want_state, rtol=5e-2, atol=5e-2)

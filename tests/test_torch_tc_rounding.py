@@ -12,7 +12,11 @@ kernels are held to on the card (``chip_smoke.py``'s ``FA_TOL`` and
   tile's running max, and sums l from the same rounded P; the scores, l
   and the accumulator stay float32. Held at 2e-2 absolute. Each block of
   q rows walks only the kv tiles from its window's first live tile
-  (``kt_begin``) to its diagonal; skipping the others changes no bit.
+  (``kt_begin``) to its diagonal; skipping the others changes no bit. A
+  head dim below the instance's panel (64 or 128) comes in as zero
+  columns, with the scale of the true D; without the causal mask every
+  tile is walked and the keys past Skv, zeros in the last tile, are
+  masked by their index.
 - K5 rounds three operands to bf16: (C B^T .* L) * dt (dt folded into the
   score, L factored around each 16-row tile's first row as the wgmma
   route's warps factor it), x * exp(dA_cum[Q-1] - dA_cum) * dt for the
@@ -53,23 +57,35 @@ BF16 = torch.bfloat16
 F32 = torch.float32
 
 
-def fa_tc_emulation(q, k, v, *, window=None, tile=64, q_block=None):
+def fa_tc_emulation(q, k, v, *, window=None, tile=64, q_block=None,
+                    causal=True, d_pad=None):
     """K4's bf16 route: float32 scores of bf16 inputs, scaled after the dot,
     the -1e30 masks, an online softmax over kv tiles of ``tile`` keys with
     P rounded to bf16 against each tile's running max and l summed from the
     rounded P, and the output rounded to bf16 once. With ``q_block``, each
     block of that many positions walks only the kernel's tiles: from
     ``kt_begin``, the tile holding its first row's first live key, to the
-    tile holding its last row; else every row walks every tile."""
+    tile holding its last row; else every row walks every tile. With
+    ``d_pad`` the head dim is zero-padded to that panel width (the scale
+    stays 1/sqrt(D)); with ``causal=False`` the keys are zero-padded to
+    whole tiles and those past Skv masked by index."""
     S, Hq, D = q.shape[1], q.shape[2], q.shape[3]
     Skv, Hkv = k.shape[1], k.shape[2]
     group = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    if d_pad is not None:
+        q, k, v = (torch.nn.functional.pad(x, (0, d_pad - D))
+                   for x in (q, k, v))
+    n_keys = Skv if causal else -(-Skv // tile) * tile
+    if n_keys > Skv:
+        k, v = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, n_keys - Skv))
+                for x in (k, v))
     kf = torch.repeat_interleave(k.to(F32), group, dim=2)
     vf = torch.repeat_interleave(v.to(F32), group, dim=2)
-    s_all = torch.einsum("bqhd,bkhd->bhqk", q.to(F32), kf) * (1.0 / math.sqrt(D))
+    s_all = torch.einsum("bqhd,bkhd->bhqk", q.to(F32), kf) * scale
     qp = torch.arange(S)[:, None]
-    kp = torch.arange(Skv)[None, :]
-    live = qp >= kp
+    kp = torch.arange(n_keys)[None, :]
+    live = qp >= kp if causal else kp < Skv
     if window is not None:
         live = live & (qp - kp < window)
     s_all = torch.where(live, s_all, NEG_INF)
@@ -80,12 +96,15 @@ def fa_tc_emulation(q, k, v, *, window=None, tile=64, q_block=None):
             first = max(0, q0 - (window - 1)) if window is not None else 0
             blocks.append((q0, min(S, q0 + q_block), first // tile * tile,
                            min(Skv, -(-(q0 + q_block) // tile) * tile)))
-    out = torch.empty(s_all.shape[:-1] + (D,))
+    if not causal:
+        blocks = [(0, S, 0, n_keys)]
+    Dp = q.shape[3]
+    out = torch.empty(s_all.shape[:-1] + (Dp,))
     for r0, r1, k_lo, k_hi in blocks:
         rows = s_all[..., r0:r1, :]
         m = torch.full(rows.shape[:-1], NEG_INF)
         l = torch.zeros(rows.shape[:-1])
-        acc = torch.zeros(rows.shape[:-1] + (D,))
+        acc = torch.zeros(rows.shape[:-1] + (Dp,))
         for k0 in range(k_lo, k_hi, tile):
             s = rows[..., k0:min(k0 + tile, k_hi)]
             m_new = torch.maximum(m, s.amax(dim=-1))
@@ -98,7 +117,7 @@ def fa_tc_emulation(q, k, v, *, window=None, tile=64, q_block=None):
                 "bhqk,bkhd->bhqd", p, vf[:, k0:k0 + s.shape[-1]])
             m = m_new
         out[..., r0:r1, :] = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.transpose(1, 2).to(q.dtype)
+    return out[..., :D].transpose(1, 2).to(q.dtype)
 
 
 def ssd_tc_emulation(x, dt, A, B, C, *, chunk=128):
@@ -228,6 +247,69 @@ def test_fa_bf16_rounding_fits_the_tolerance_tile128(B, S, Hq, Hkv, D, win,
                                atol=FA_TOL)
 
 
+# head dims below the instance's panel, zero-padded as the TMA fills them:
+# SMOKE smollm's 24 and granite's 16 (panel 64), phi-3-mini's 96 (panel
+# 128), with the wgmma route's 128-key tiles
+FA_PADDED_CASES = [
+    # B, S, Hq, Hkv, D, window, d_pad
+    (2, 64, 3, 1, 24, None, 64),
+    (2, 64, 6, 1, 16, None, 64),
+    (2, 64, 4, 2, 16, 16, 64),        # SMOKE mixtral's window
+    (1, 200, 4, 2, 96, None, 128),
+    (1, 300, 9, 3, 96, 100, 128),
+]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,win,d_pad", FA_PADDED_CASES)
+def test_fa_bf16_rounding_with_padded_head_dims(B, S, Hq, Hkv, D, win,
+                                                d_pad):
+    q, k, v = fa_operands(B, S, Hq, Hkv, D, seed=S + D)
+    want = _fa_jax(q, k, v, win, 64)
+    tq, tk, tv = (torch.from_numpy(a).to(BF16) for a in (q, k, v))
+    got = fa_tc_emulation(tq, tk, tv, window=win, tile=128, d_pad=d_pad)
+    assert got.dtype == BF16 and got.shape == (B, S, Hq, D)
+    np.testing.assert_allclose(got.to(F32).numpy(), want, rtol=0,
+                               atol=FA_TOL)
+    plain = attention_reference(tq, tk, tv, window=win)
+    torch.testing.assert_close(got.to(F32), plain.to(F32), rtol=0,
+                               atol=FA_TOL)
+
+
+# causal=False: every 128-key tile, keys past Skv masked by index; against
+# the reference's kernel where it pads no key (Skv at most 512), and at
+# Skv = 600 against its oracle (R8)
+FA_NONCAUSAL_CASES = [
+    # B, S, Skv, Hq, Hkv, D, d_pad
+    (1, 64, 100, 3, 1, 24, 64),
+    (2, 128, 256, 4, 4, 64, 64),      # seamless's cross heads, narrower
+    (1, 50, 300, 2, 2, 96, 128),
+    (1, 16, 600, 2, 2, 16, 64),
+]
+
+
+@pytest.mark.parametrize("B,S,Skv,Hq,Hkv,D,d_pad", FA_NONCAUSAL_CASES)
+def test_fa_bf16_rounding_without_the_causal_mask(B, S, Skv, Hq, Hkv, D,
+                                                  d_pad):
+    from repro.kernels.flash_attention.ref import attention_reference as jref
+    rng = np.random.default_rng(S + Skv)
+    q, k, v = (rng.normal(0, 1, (B, n, h, D)).astype(np.float32)
+               for n, h in ((S, Hq), (Skv, Hkv), (Skv, Hkv)))
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    if Skv <= 512:
+        want = jax_flash(jq, jk, jv, causal=False, interpret=True)
+    else:
+        want = jref(jq, jk, jv, causal=False)
+    tq, tk, tv = (torch.from_numpy(a).to(BF16) for a in (q, k, v))
+    got = fa_tc_emulation(tq, tk, tv, tile=128, causal=False, d_pad=d_pad)
+    assert got.dtype == BF16 and got.shape == (B, S, Hq, D)
+    np.testing.assert_allclose(got.to(F32).numpy(),
+                               np.asarray(want, np.float32), rtol=0,
+                               atol=FA_TOL)
+    plain = attention_reference(tq, tk, tv, causal=False)
+    torch.testing.assert_close(got.to(F32), plain.to(F32), rtol=0,
+                               atol=FA_TOL)
+
+
 @pytest.mark.parametrize("q_block", [64, 128], ids=["pair", "rows"])
 @pytest.mark.parametrize("S,win", [(512, 100), (700, 200), (384, None)])
 def test_fa_walk_from_kt_begin_changes_nothing(S, win, q_block):
@@ -298,8 +380,8 @@ def _ssd_close(got, want):
                                atol=SSD_TOL)
 
 
-def _ssd_close_to_plain(t, y, state):
-    want_y, want_state = ssd_reference(*t, chunk=128)
+def _ssd_close_to_plain(t, y, state, chunk=128):
+    want_y, want_state = ssd_reference(*t, chunk=chunk)
     torch.testing.assert_close(y.to(F32), want_y.to(F32), rtol=SSD_TOL,
                                atol=SSD_TOL)
     torch.testing.assert_close(state, want_state, rtol=SSD_TOL,
@@ -340,3 +422,28 @@ def test_ssd_emulation_rounds_its_operands():
     assert 1e-5 < d_state <= SSD_TOL
     assert float((y.to(F32) - want_y.to(F32)).abs().max()) <= SSD_TOL * (
         1 + float(want_y.to(F32).abs().max()))
+
+
+# chunks below 128: SMOKE mamba2's widths (p = n = 16) at its chunk 16,
+# and mamba2's widths at chunk 64; the kernel computes each chunk in the
+# 128 rows of its tiles, zeros past the chunk, which the emulation's sums
+# leave exact
+SSD_CHUNK_CASES = [
+    # b, s, h, p, g, n, chunk
+    (2, 64, 8, 16, 1, 16, 16),
+    (1, 256, 2, 64, 1, 128, 64),
+    (1, 192, 3, 64, 1, 64, 64),       # 3 heads a group
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CHUNK_CASES)
+def test_ssd_bf16_rounding_at_smaller_chunks(b, s, h, p, g, n, chunk):
+    j, t = _ssd_both(ssd_operands(b, s, h, p, g, n, seed=s + chunk))
+    want_y, _ = jax_ssd_scan(*j, chunk=chunk, interpret=True)
+    _, want_state = jax_ssd_chunked(*j, chunk=chunk)
+    y, state = ssd_tc_emulation(*t, chunk=chunk)
+    assert y.dtype == BF16 and y.shape == (b, s, h, p)
+    assert state.shape == (b, h, p, n)
+    _ssd_close(y, want_y)
+    _ssd_close(state, want_state)
+    _ssd_close_to_plain(t, y, state, chunk=chunk)

@@ -44,7 +44,7 @@ NO_PV = ("          if constexpr (D == 64)\n"
          "pf[kk][2] ^ pf[kk][3]);")
 NO_S = ("          wgmma_ss_n128(\n              s,",
         "          if (ks < 0) wgmma_ss_n128(\n              s,")
-Q_FAST = "  const int q_fast = 4ll * B * Skv * Hkv * D > kKvL2Bytes;"
+Q_FAST = "  const int q_fast = 4ll * B * Skv * Hkv * d > kKvL2Bytes;"
 VARIANTS = {
     "as_is": [],
     "three_stages": [("constexpr int kStages = 2;",
@@ -88,7 +88,7 @@ def use_library(lib):
     import ctypes
     from repro_torch.kernels.flash_attention import kernel
     fn = ctypes.CDLL(lib).flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     kernel._fn = fn

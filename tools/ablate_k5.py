@@ -98,7 +98,7 @@ def use_library(lib):
     import ctypes
     from repro_torch.kernels.ssd_scan import kernel
     fn = ctypes.CDLL(lib).ssd_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 6
                    + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
