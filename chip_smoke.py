@@ -55,8 +55,10 @@ port's entry points:
                 at the path's shape; then the rest of its domain in bf16
                 and in float32 (FA_DOMAIN_SHAPES: SMOKE smollm's D = 24 and
                 granite's D = 16, D = 80 and 96 at smollm's path shape,
-                and causal=False at seamless's cross shape and a ragged
-                Skv = 600), and head dims off the domain refused
+                causal=False at seamless's cross shape and a ragged Skv =
+                600, the 256-column instance at gemma-7b's attention,
+                gemma-2-9b's sliding layer and D = 136, and D = 100, padded
+                by the wrapper), and head dims past 256 refused
  11. serving    repro_torch.launch.serve at the full smollm-135m config
                 with attn_backend="pallas" (8 prompts of 1024 tokens, 32
                 greedy tokens each): prefill s, decode tokens/s, the
@@ -72,7 +74,9 @@ port's entry points:
                 bound times, and at each bf16 shape the first design's
                 (the float32 route), which the bf16 kernel must beat at
                 the path's shape; then SMOKE mamba2's mixer at chunk 16 and
-                the path's shape at chunk 64, in bf16 and in float32
+                the path's shape at chunk 64 and 256, Mamba-Codestral-7B's
+                mixer at chunk 256, p = 128 at chunk 128 and 256, and p =
+                12, n = 20 (padded by the wrapper), in bf16 and in float32
                 (SSD_DOMAIN_SHAPES), and widths and chunks off the domain
                 refused
  13. mamba2     repro_torch.launch.serve at the full mamba2-1.3b config (8
@@ -81,6 +85,12 @@ port's entry points:
                 decode; finite logits, agreement with a prefill through the
                 plain scan, decode against a longer prefill, and a profile
                 of one prefill and one decode step
+ 29. chunk 256  phase 13's model and weights with ssm_chunk=256 (mamba_ssm's
+                default chunk): serve(), K5 once per layer per prefill (each
+                chunk one chunk in two row tiles) and never in decode, K5
+                against the plain scan on every layer's own inputs, the
+                logits against a prefill through the plain scan at chunk
+                256 at phase 13's limits (run right after phase 13)
  14. scenarios  bench_scenarios.py's context agent (1500 episodes, 32 envs,
                 all seven condition families) trained on the card, scored
                 with evaluate_scenario against the static and
@@ -139,7 +149,7 @@ port's entry points:
                 prefill; K4 and K5 held on the operands the path gave them
                 (every call of one prefill) and timed on the first; a
                 profile of one prefill and one decode step
- 21. mixtral    the same at mixtral-8x22b's full width, 2 of its 56 layers
+ 21. mixtral    the same at mixtral-8x22b's full width, 1 of its 56 layers
                 (2 prompts of 6144 tokens, past its 4096 window, so K4
                 masks and the ring cache wraps); against the 'chunked'
                 backend; the capacity dispatch of moe_apply with nothing
@@ -147,7 +157,7 @@ port's entry points:
                 the path gave it
  22. dense      the same for deepseek-7b (MHA), granite-34b (MQA, the GELU
                 MLP) and chatglm3-6b (GQA 16:1, partial rope, qkv biases),
-                each at full width with 8 layers (8 prompts of 1024 tokens)
+                each at full width with 4 layers (8 prompts of 1024 tokens)
  23. training   repro_torch.launch.train at smollm-135m's full width on
                 random weights (8 x 1024 tokens a step, 20 steps): the
                 AutoMDT controller trained by PPO on the card (K1) tuning
@@ -161,7 +171,7 @@ port's entry points:
                 card against the CPU; K1 held on the controller's operands
  24. last archs phase 20's checks for seamless-m4t-large-v2 (enc-dec, 24 +
                 24 layers as published: K4 on the decoder's self-attention,
-                24 launches a prefill, 8 x 256 frames), qwen2-vl-72b (4 of
+                24 launches a prefill, 8 x 256 frames), qwen2-vl-72b (2 of
                 80 layers at full width, the first 256 of 1024 tokens
                 vision embeddings; K4 at 64 q over 8 kv heads of 128; one
                 more prefill with a real 16 x 16 (t, h, w) grid against
@@ -427,8 +437,8 @@ FA_SHAPES = {
 # (tests/test_torch_tc_rounding.py holds an emulation of these roundings
 # against the reference at this limit)
 FA_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
-# K4 over the rest of its domain, name: (B, S, Skv, Hq, Hkv, D, causal):
-# each in bf16 and in float32 (phase 10's rows ``<name>_bf16``,
+# K4 over the rest of its domain, name: (B, S, Skv, Hq, Hkv, D, causal,
+# window): each in bf16 and in float32 (phase 10's rows ``<name>_bf16``,
 # ``<name>_f32``). SMOKE smollm-135m's and granite-34b's prefill shapes at
 # serve --smoke's request (2 prompts of 64 tokens: D = 24, GQA 3:1, and
 # D = 16, MQA 6:1); phi-2's and phi-3-mini's published head dims (80 and
@@ -436,15 +446,28 @@ FA_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # one per padded instance (64 columns up to D = 64, 128 above); and
 # causal=False at seamless-m4t-large-v2's cross-attention shape (1024
 # decoder positions over 256 frames, 16 heads of 64) and at a ragged
-# Skv = 600. The library time there is sdpa(is_causal=False).
+# Skv = 600 (the library time there is sdpa(is_causal=False)). The
+# 256-column instance: gemma-7b's attention (16 heads and 16 kv heads of
+# 256) at 8 prompts of 1024 tokens, gemma-2-9b's sliding layer (16 q over
+# 8 kv heads of 256, a 4096 window) at one prompt of 8192 tokens (their
+# config.json on the Hugging Face hub), and D = 136 through it with zero
+# columns at smollm's path shape; and D = 100, off the bf16 step of 8,
+# which the wrapper pads to 104.
 FA_DOMAIN_SHAPES = {
-    "smoke_smollm": (2, 64, 64, 3, 1, 24, True),
-    "smoke_granite": (2, 64, 64, 6, 1, 16, True),
-    "d80": (8, 1024, 1024, 9, 3, 80, True),
-    "d96": (8, 1024, 1024, 9, 3, 96, True),
-    "cross": (8, 1024, 256, 16, 16, 64, False),
-    "cross_ragged": (8, 1024, 600, 16, 16, 64, False),
+    "smoke_smollm": (2, 64, 64, 3, 1, 24, True, None),
+    "smoke_granite": (2, 64, 64, 6, 1, 16, True, None),
+    "d80": (8, 1024, 1024, 9, 3, 80, True, None),
+    "d96": (8, 1024, 1024, 9, 3, 96, True, None),
+    "cross": (8, 1024, 256, 16, 16, 64, False, None),
+    "cross_ragged": (8, 1024, 600, 16, 16, 64, False, None),
+    "gemma7b": (8, 1024, 1024, 16, 16, 256, True, None),
+    "gemma2_sliding": (1, 8192, 8192, 16, 8, 256, True, 4096),
+    "d136": (8, 1024, 1024, 9, 3, 136, True, None),
+    "d100": (8, 1024, 1024, 9, 3, 100, True, None),
 }
+# head dims past the widest instance, refused on the card without a launch
+FA_REFUSED_DIMS = (("bfloat16", 264), ("bfloat16", 257), ("float32", 260),
+                   ("float32", 258))
 # phase 11: smollm-135m at full width, the reference serve's greedy loop
 SERVE_ARCH = "smollm-135m"
 SERVE_BATCH = 8
@@ -475,10 +498,21 @@ SSD_CHUNK = 128
 # K5 over the rest of its domain, name: (b, s, h, p, g, n, chunk): SMOKE
 # mamba2-1.3b's mixer at serve --smoke's request (p = n = 16, chunk 16)
 # and mamba2's path shape at chunk 64, each in bf16 and in float32 (phase
-# 12's rows ``<name>_bf16``, ``<name>_f32``)
+# 12's rows ``<name>_bf16``, ``<name>_f32``). Chunks of two row tiles:
+# mamba2's path shape at chunk 256 (Mamba2's own default chunk_size in
+# mamba_ssm, phase 29's path) and Mamba-Codestral-7B's mixer (128 heads of
+# 64, 8 B/C groups, state 128, chunk 256; its config on the Hugging Face
+# hub) at 8 prompts of 1024 tokens; a head dim of 128 (two 64-column
+# blocks a head) at chunk 128 and 256; and p = 12, n = 20, off the step of
+# 8, which the wrapper pads to 16 and 24.
 SSD_DOMAIN_SHAPES = {
     "smoke_mamba2": (2, 64, 8, 16, 1, 16, 16),
     "mamba2_chunk64": (8, 1024, 64, 64, 1, 128, 64),
+    "mamba2_chunk256": (8, 1024, 64, 64, 1, 128, 256),
+    "codestral": (8, 1024, 128, 64, 8, 128, 256),
+    "p128_chunk128": (8, 1024, 32, 128, 1, 128, 128),
+    "p128_chunk256": (8, 1024, 32, 128, 1, 128, 256),
+    "p12_n20": (8, 1024, 16, 12, 1, 20, 128),
 }
 # the reference's own SSD tolerances (tests/test_kernels.py), as atol and
 # rtol: the same float32 math summed in another order; in bf16 y rounds
@@ -502,25 +536,31 @@ SSM_ARCH = "mamba2-1.3b"
 # within twice SERVE_ATOL, and the greedy token within SERVE_ATOL +
 # SERVE_RTOL of the top logit
 SSM_E2E_ATOL = 2 * SERVE_ATOL
+# phase 29: phase 13's model and weights with one field changed, the chunk
+# of mamba_ssm's own default (and Mamba-Codestral-7B's), held at phase
+# 13's limits against a prefill through the plain scan at the same chunk
+SSM_LONG_CHUNK = 256
 # phases 20-22: the serving families at full width through serve(), 32
 # greedy tokens per request like phase 11: arch -> (layers kept (None: the
 # published depth), prompts, prompt tokens, the backend the 'pallas'
 # logits are held against). Depth is cut where the weights drawn on the
-# host in float32 would take minutes (mixtral: 2 of 56 layers, 141e9
-# parameters in all; the dense configs 8 layers each); mixtral's prompts
+# host in float32 would take minutes (mixtral: 1 of 56 layers, 141e9
+# parameters in all; the dense configs 4 layers each; mixtral cut from 2
+# layers, the dense configs from 8 and qwen2-vl from 4 to keep the run in
+# its time limit with phase 29); mixtral's prompts
 # are longer than its 4096 window, and its reference backend is its
 # config's 'chunked', since 'full' would hold every layer's 6144 x 6144
 # scores. Phase 24: seamless as published (24 + 24 layers, 1.6e9
-# parameters), qwen2-vl cut to 4 of 80 layers and deepseek-v2 to 1 of 60
+# parameters), qwen2-vl cut to 2 of 80 layers and deepseek-v2 to 1 of 60
 # (6.0e9 and 5.0e9 parameters at full width; neither fits the card whole)
 FAMILY_SERVE = {
     20: {"zamba2-1.2b": (None, 8, 1024, "full")},
-    21: {"mixtral-8x22b": (2, 2, 6144, "chunked")},
-    22: {"deepseek-7b": (8, 8, 1024, "full"),
-         "granite-34b": (8, 8, 1024, "full"),
-         "chatglm3-6b": (8, 8, 1024, "full")},
+    21: {"mixtral-8x22b": (1, 2, 6144, "chunked")},
+    22: {"deepseek-7b": (4, 8, 1024, "full"),
+         "granite-34b": (4, 8, 1024, "full"),
+         "chatglm3-6b": (4, 8, 1024, "full")},
     24: {"seamless-m4t-large-v2": (None, 8, 1024, "full"),
-         "qwen2-vl-72b": (4, 8, 1024, "full"),
+         "qwen2-vl-72b": (2, 8, 1024, "full"),
          "deepseek-v2-236b": (1, 8, 1024, "full")},
 }
 # phase 28: every arch's SMOKE config served as ``serve --smoke`` serves it
@@ -1396,10 +1436,16 @@ def fa_row(torch, name, q, k, v, window, *, first_design=False,
         fail(f"flash_attention {name}: max abs err {err} > {FA_TOL[dtype]}")
     b_ms, b_by, terms = fa_bound(B, S, Hq, Hkv, D, window, dtype, Skv=Skv,
                                  causal=causal)
+    # the device time: the median of the profiler's samples, with their
+    # least and most
+    spread = device_spread(torch, kern, FA_PREFIX, n=10)
     row = dict(B=B, S=S, Skv=Skv, Hq=Hq, Hkv=Hkv, D=D, causal=causal,
                window=window, dtype=dtype, max_abs_err=err,
                ms=time_ms(torch, kern, samples=10, inner=10),
-               device_ms=device_ms(torch, kern, FA_PREFIX, n=10),
+               device_ms=spread and spread["median"],
+               device_ms_min=spread and spread["min"],
+               device_ms_max=spread and spread["max"],
+               device_samples=spread and spread["samples"],
                plain_ms=time_ms(torch, plain, samples=5, inner=3, warmup=1),
                library_ms=time_ms(torch, lib, samples=10, inner=10),
                library_call=lib_call, bound_ms=b_ms, bound_by=b_by,
@@ -1415,7 +1461,9 @@ def fa_row(torch, name, q, k, v, window, *, first_design=False,
     print(f"[attention] {name} B={B} S={S} Skv={Skv} Hq={Hq} Hkv={Hkv} "
           f"D={D} causal={causal} window={window} {dtype}: "
           f"max_abs_err={err:.3g} "
-          f"ms={row['ms']} device_ms={row['device_ms']} "
+          f"ms={row['ms']} device_ms={row['device_ms']} (median of "
+          f"{row['device_samples']}, {row['device_ms_min']}-"
+          f"{row['device_ms_max']}) "
           f"first_design_device_ms={row.get('first_design_device_ms')} "
           f"plain_ms={row['plain_ms']} library_ms={row['library_ms']} "
           f"({lib_call}) bound_ms={b_ms:.4g} ({b_by}; {json.dumps(terms)}); "
@@ -1440,7 +1488,7 @@ def phase_attention(torch):
                    for h in (Hq, Hkv, Hkv))
         rows[name] = fa_row(torch, name, q, k, v, window, first_design=True)
     faster_than_first(rows["smollm_bf16"], "flash_attention smollm_bf16")
-    for i, (name, (B, S, Skv, Hq, Hkv, D, causal)) in enumerate(
+    for i, (name, (B, S, Skv, Hq, Hkv, D, causal, window)) in enumerate(
             FA_DOMAIN_SHAPES.items()):
         for dtype in ("bfloat16", "float32"):
             gen = torch.Generator(device="cuda").manual_seed(100 + i)
@@ -1448,9 +1496,8 @@ def phase_attention(torch):
                                    device="cuda").to(getattr(torch, dtype))
                        for n, h in ((S, Hq), (Skv, Hkv), (Skv, Hkv)))
             tag = f"{name}_{'bf16' if dtype == 'bfloat16' else 'f32'}"
-            rows[tag] = fa_row(torch, tag, q, k, v, None, causal=causal)
-    for dtype, D in (("bfloat16", 12), ("bfloat16", 136), ("float32", 6),
-                     ("float32", 256)):
+            rows[tag] = fa_row(torch, tag, q, k, v, window, causal=causal)
+    for dtype, D in FA_REFUSED_DIMS:
         q = torch.zeros((1, 16, 2, D), dtype=getattr(torch, dtype),
                         device="cuda")
         before = ops.flash_attention.launches
@@ -1463,8 +1510,9 @@ def phase_attention(torch):
                  f"domain")
         if ops.flash_attention.launches != before:
             fail(f"flash_attention launched at head dim {D}")
-    print("[attention] head dims 12 and 136 (bf16), 6 and 256 (float32) "
-          "refused with ValueError, no launch")
+    print("[attention] head dims " + ", ".join(
+        f"{D} ({dtype})" for dtype, D in FA_REFUSED_DIMS)
+        + " refused with ValueError, no launch")
     return rows
 
 
@@ -1691,11 +1739,13 @@ def phase_ssd(torch):
                                    seed=0)
     for what, args, chunk in (
             ("chunk 40", (x, dt_, A, B, C), 40),
-            ("chunk 256", (x, dt_, A, B, C), 256),
-            ("head dim 72", (torch.cat([x, x[..., :8]], -1), dt_, A, B, C),
-             128),
-            ("state dim 36", (x, dt_, A, B[..., :36].contiguous(),
-                              C[..., :36].contiguous()), 128)):
+            ("chunk 272", (x, dt_, A, B, C), 272),
+            ("head dim 136", (torch.cat([x, x, x[..., :8]], -1), dt_, A, B,
+                              C), 128),
+            ("state dim 264", (x, dt_, A,
+                               torch.cat([B] * 4 + [B[..., :8]], -1),
+                               torch.cat([C] * 4 + [C[..., :8]], -1)),
+             128)):
         before = ops.ssd_scan.launches
         try:
             ops.ssd_scan(*args, chunk=chunk)
@@ -1705,7 +1755,7 @@ def phase_ssd(torch):
             fail(f"ssd_scan took {what}, off its domain")
         if ops.ssd_scan.launches != before:
             fail(f"ssd_scan launched at {what}")
-    print("[ssd] chunks 40 and 256, head dim 72 and state dim 36 refused "
+    print("[ssd] chunks 40 and 272, head dim 136 and state dim 264 refused "
           "with ValueError, no launch")
     return rows
 
@@ -1744,9 +1794,17 @@ def phase_mamba2(torch):
         return ssd_chunked(x, dt, A, B, C, chunk=chunk // 2)
 
     B, P, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    # the weights serve() would draw from the seed, drawn once on the host
+    # and passed in (phase 11 and phase 28's CLI run serve()'s own init)
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SERVE_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     reset_launches()
     t0 = time.perf_counter()
-    toks, info = serve(cfg, batch=B, prompt_len=P, gen=G, seed=SERVE_SEED)
+    toks, info = serve(cfg, batch=B, prompt_len=P, gen=G, seed=SERVE_SEED,
+                       params=params)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = read_launches()
@@ -1756,8 +1814,8 @@ def phase_mamba2(torch):
           f"state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab {cfg.vocab}, "
           f"bf16): {B} prompts x {P} tokens, {G} greedy tokens each; "
           f"prefill {info['prefill_s']:.4f} s, decode {info['decode_s']:.4f}"
-          f" s = {info['tok_per_s']:.1f} tokens/s; serve() {serve_s:.2f} s "
-          f"with the init; launches {json.dumps(launches)}")
+          f" s = {info['tok_per_s']:.1f} tokens/s; serve() {serve_s:.2f} s; "
+          f"launches {json.dumps(launches)}")
     if tuple(toks.shape) != (B, G) or not (
             0 <= int(toks.min()) and int(toks.max()) < cfg.vocab):
         fail(f"serve returned tokens {tuple(toks.shape)} out of range")
@@ -1765,11 +1823,6 @@ def phase_mamba2(torch):
         fail(f"mamba2 serving launched {json.dumps(launches)}, expected "
              f"ssd_scan = {cfg.n_layers} (one prefill) and no other")
 
-    model = get_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(SERVE_SEED)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
     rng = np.random.default_rng(SERVE_SEED)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, P),
@@ -1874,10 +1927,129 @@ def phase_mamba2(torch):
     for name, pr in prof.items():
         print(f"[mamba2 profile] {name}: " + json.dumps(pr))
     return dict(info=info, launches=launches, profile=prof, init_s=init_s,
-                layer_tol_ratio=max(layer_ratios),
+                params=params, layer_tol_ratio=max(layer_ratios),
                 max_diff_plain=float(d_plain.max()),
                 max_diff_half=float(d_half.max()),
                 max_diff_step=float(d_step.max()))
+
+
+def phase_mamba2_long_chunk(torch, params):
+    """29. Mamba2 serving at chunk 256: serve() at the full mamba2-1.3b
+    config with ssm_chunk=SSM_LONG_CHUNK and phase 13's weights (the same
+    seed; passed in, not drawn again), counting K5's launches; then on the
+    same weights and prompts: finite logits, K5 launched once per layer
+    per prefill and never in decode, K5 against the plain scan at chunk
+    256 on every layer's own inputs, and the logits against a prefill
+    through the plain scan at chunk 256, at phase 13's limits."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import get_model
+    from repro_torch.nn.ssd import ssd_chunked
+    cfg = get_config(SSM_ARCH).replace(ssm_chunk=SSM_LONG_CHUNK)
+    layer_ratios, chunks = [], []
+
+    def held_against_plain(x, dt, A, B, C, *, chunk):
+        """K5 on a layer's own inputs, held against the plain scan."""
+        chunks.append(chunk)
+        y, state = ops.ssd_scan(x, dt, A, B, C, chunk=chunk,
+                                return_state=True)
+        want_y, want_state = ssd_chunked(x, dt, A, B, C, chunk=chunk)
+        tol = SSD_TOL[str(x.dtype).split(".")[-1]]
+        layer_ratios.append(max(allclose_ratio(torch, y, want_y, tol),
+                                allclose_ratio(torch, state, want_state,
+                                               tol)))
+        return y, state
+
+    B, P, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    reset_launches()
+    toks, info = serve(cfg, batch=B, prompt_len=P, gen=G, seed=SERVE_SEED,
+                       params=params)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"[mamba2 chunk {SSM_LONG_CHUNK}] {SSM_ARCH} at chunk "
+          f"{cfg.ssm_chunk} (phase 13's weights): {B} prompts x {P} tokens, "
+          f"{G} greedy tokens each; prefill {info['prefill_s']:.4f} s, decode "
+          f"{info['decode_s']:.4f} s = {info['tok_per_s']:.1f} tokens/s; "
+          f"launches {json.dumps(launches)}")
+    if tuple(toks.shape) != (B, G) or not (
+            0 <= int(toks.min()) and int(toks.max()) < cfg.vocab):
+        fail(f"serve returned tokens {tuple(toks.shape)} out of range")
+    if launches != {**{k: 0 for k in launches}, "ssd_scan": cfg.n_layers}:
+        fail(f"mamba2 serving at chunk {cfg.ssm_chunk} launched "
+             f"{json.dumps(launches)}, expected ssd_scan = {cfg.n_layers} "
+             f"(one prefill) and no other")
+
+    model = get_model(cfg)
+    rng = np.random.default_rng(SERVE_SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, P),
+                                           dtype=np.int32)).cuda()
+    batch = {"tokens": tokens}
+    with torch.inference_mode():
+        reset_launches()
+        logits, cache = model.prefill(params, batch,
+                                      model.init_cache(B, P + G))
+        torch.cuda.synchronize()
+        n_prefill = read_launches()["ssd_scan"]
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        reset_launches()
+        model.decode_step(params, cache, tok)
+        torch.cuda.synchronize()
+        n_decode = read_launches()["ssd_scan"]
+        logits_plain, _ = model.prefill(params, batch,
+                                        model.init_cache(B, P + G),
+                                        ssd_fn=ssd_chunked)
+        logits_held, _ = model.prefill(params, batch,
+                                       model.init_cache(B, P + G),
+                                       ssd_fn=held_against_plain)
+        torch.cuda.synchronize()
+    finite = bool(torch.isfinite(logits).all()) and bool(
+        torch.isfinite(logits_plain).all())
+    same_first = bool(torch.equal(tok[:, 0], toks[:, 0]))
+    live = slice(0, cfg.vocab)
+    d_plain = (logits - logits_plain)[:, live].abs()
+    tol = SERVE_ATOL + SERVE_RTOL * logits[:, live].abs()
+    top = logits.max(dim=-1).values
+    near_top = bool(torch.all(
+        top - logits.gather(1, logits_plain.argmax(dim=-1, keepdim=True))[:, 0]
+        <= SERVE_ATOL + SERVE_RTOL * top.abs()))
+    plain_ok = float(d_plain.max()) <= SSM_E2E_ATOL and near_top
+    agree = float((logits.argmax(-1) == logits_plain.argmax(-1))
+                  .float().mean())
+    print(f"[mamba2 chunk {SSM_LONG_CHUNK} check] logits finite {finite}; "
+          f"prefill launches {n_prefill}, decode step launches {n_decode}; "
+          f"serve's first tokens reproduced {same_first}; K5 vs the plain "
+          f"scan on each layer's inputs: at most {max(layer_ratios):.3g} of "
+          f"SSD_TOL over {len(layer_ratios)} layers at chunks "
+          f"{sorted(set(chunks))}; K5 vs plain-scan prefill at chunk "
+          f"{cfg.ssm_chunk}: max abs diff {float(d_plain.max()):.4g}, mean "
+          f"{float(d_plain.mean()):.4g}, "
+          f"{float((d_plain / tol).max()):.3g} of atol+rtol, argmax agree "
+          f"{agree:.3f}")
+    if not finite:
+        fail(f"non-finite logits in mamba2 serving at chunk {cfg.ssm_chunk}")
+    if n_prefill != cfg.n_layers or n_decode != 0:
+        fail(f"ssd_scan launched {n_prefill} times in a prefill and "
+             f"{n_decode} in a decode step at chunk {cfg.ssm_chunk}, "
+             f"expected {cfg.n_layers} and 0")
+    if not same_first:
+        fail("the same weights and prompts did not reproduce serve's first "
+             f"tokens at chunk {cfg.ssm_chunk}")
+    if (len(layer_ratios) != cfg.n_layers or not max(layer_ratios) <= 1.0
+            or set(chunks) != {SSM_LONG_CHUNK}):
+        fail(f"K5 disagrees with the plain scan on a layer's inputs at chunk "
+             f"{cfg.ssm_chunk}: {max(layer_ratios)} of SSD_TOL")
+    if not bool(torch.equal(logits_held, logits)):
+        fail("a prefill through K5 held against the plain scan gave other "
+             f"logits than the plain K5 prefill at chunk {cfg.ssm_chunk}")
+    if not plain_ok:
+        fail(f"the K5 and plain-scan prefills at chunk {cfg.ssm_chunk} "
+             f"differ by {float(d_plain.max())} (limit {SSM_E2E_ATOL}), or "
+             f"their greedy tokens are no near-tie")
+    return dict(info=info, launches=launches, chunk=cfg.ssm_chunk,
+                layer_tol_ratio=max(layer_ratios),
+                max_diff_plain=float(d_plain.max()),
+                mean_diff_plain=float(d_plain.mean()), argmax_agree=agree)
 
 
 def phase_scenarios(torch):
@@ -5282,6 +5454,11 @@ def main():
     # --- 13. mamba2-1.3b serving: prefill through K5, greedy decode ------------
     mb = phase_mamba2(torch)
     lap(13)
+    # --- 29. mamba2-1.3b at chunk 256: phase 13's weights, K5's two row tiles
+    mb_long = phase_mamba2_long_chunk(torch, mb.pop("params"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap(29)
     # --- 14. single-flow evaluation: train -> evaluate_scenario -> replay ----
     sc = phase_scenarios(torch)
     lap(14)
@@ -5475,10 +5652,12 @@ def main():
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:27",
-        "launches": mb["launches"]["ssd_scan"] + sum(
+        "launches": mb["launches"]["ssd_scan"]
+        + mb_long["launches"]["ssd_scan"] + sum(
             f["launches"]["ssd_scan"] for f in fam.values()) + sum(
             n["ssd_scan"] for n in sm["launches"].values()),
         "launches_mamba2": mb["launches"]["ssd_scan"],
+        "launches_mamba2_chunk256": mb_long["launches"]["ssd_scan"],
         **{f"launches_smoke_{a}": n["ssd_scan"]
            for a, n in sm["launches"].items() if n["ssd_scan"]},
         **{f"launches_{a}": fam[a]["launches"]["ssd_scan"] for a in k5_path},
@@ -5508,6 +5687,7 @@ def main():
         "max_memory_allocated", "losses") if k in r}
         for a, r in tl.items() if a in TRAIN_LAST}))
     print("[dryrun] " + json.dumps(dr))
+    print(f"[mamba2 chunk {SSM_LONG_CHUNK}] " + json.dumps(mb_long))
     print("[smoke serving] " + json.dumps(sm["rows"]))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -15,7 +15,8 @@
 //   out[i] = sum_j p[i, j] v[j] / max(l[i], 1e-30),  p = exp(s - running max)
 // with the reference's online softmax: a running max m, normalizer l and
 // accumulator per row, all float32, updated once per kv tile (128 keys in
-// the bf16 route, 64 in the float32 one); a row whose running max is still
+// the bf16 route up to D = 128 and 64 at its 256-column instance, 64 in the
+// float32 one); a row whose running max is still
 // -1e30 keeps p = 0. The kv head of q head h is h / (Hq / Hkv) (GQA). The
 // output is written in the inputs' dtype. Ragged S is handled at the edges
 // (rows past S are not stored, keys past Skv are masked), where the
@@ -29,12 +30,14 @@
 //
 // Layout, in and out: q (B, S, Hq, D), k/v (B, Skv, Hkv, D), o (B, S, Hq, D),
 // contiguous, on 16-byte boundaries. Each route is instantiated at the panel
-// widths 64 and 128 and runs the next one at or above D: the bf16 route's
-// tensor maps take the true D (a multiple of 8), so that the TMA fills the
-// panel's columns past D with zeros, which add nothing to Q K^T, and its
-// store drops the output's; the float32 route loads and stores those
-// columns under guards (D a multiple of 4). The scale is 1/sqrt(D) of the
-// true D.
+// widths 64, 128 and 256 and runs the next one at or above D: the bf16
+// route's tensor maps take the true D (a multiple of 8), so that the TMA
+// fills the panel's columns past D with zeros (a box wholly past D comes
+// back as zeros), which add nothing to Q K^T, and its store drops the
+// output's; the float32 route loads and stores those columns under guards
+// (D a multiple of 4). The scale is 1/sqrt(D) of the true D, which the
+// caller passes: ops.flash_attention adds zero columns to a D off the
+// route's step and passes the scale of the D it was given.
 //
 // What bounds it on this card: the operations. Causal prefill is
 // 4 * B * Hq * D * S (S + 1) / 2 operations against q, k, v and o read or
@@ -55,7 +58,10 @@
 // from tensor maps on the tensors as they lie (4-d: D, H, S, B; the 128-byte
 // swizzle; built on each call in the C entry). The q tiles are loaded once; kv
 // tiles of 128 keys run through a ring of 2 stages in shared memory (Q 32 KB +
-// 2 x (K 32 KB + V 32 KB) at D = 128, half at 64), each stage with a full
+// 2 x (K 32 KB + V 32 KB) at D = 128, half at 64; at D = 256 tiles of 64
+// keys, Q 64 KB + 2 x (K 32 KB + V 32 KB) = 192 KB, as 128-key tiles would
+// need 320 KB: FlashAttention-3 too narrows its kv tile at 256), each stage
+// with a full
 // barrier per operand (armed with the tile's bytes) and an empty barrier that
 // each consumer warp arrives at once the wgmma reading the stage has retired.
 // Warpgroups 1 and 2 are the consumers (setmaxnreg.inc to 240), 64 q rows each.
@@ -66,14 +72,16 @@
 // every tile without the causal mask), and a
 // consumer whose rows have none in a tile skips its products there (it still
 // waits on and releases the stage). Per tile, a consumer computes S = Q K^T by
-// wgmma m64n128k16 with both operands read from shared memory through
+// wgmma m64n128k16 (m64n64k16 on 64-key tiles) with both operands read from
+// shared memory through
 // descriptors; applies the -1e30 masks only on tiles that cross the diagonal, a
 // window's edge or Skv; runs the online softmax on the accumulator in registers
 // (row max over the quad by shuffles, the scale folded into the exponent as
 // 2^((s - m) scale log2 e) by ex2.approx); rounds P to bf16 in the
 // accumulator's order, which is the register A operand of O += P V (wgmma
-// m64nDk16, V read from shared memory as an MN-major operand: no transpose
-// copy), and sums l from the same rounded weights: that rounding (2^-9 relative
+// m64nDk16, two m64n128k16 halves at D = 256, V read from shared memory as
+// an MN-major operand: no transpose copy), and sums l from the same rounded
+// weights: that rounding (2^-9 relative
 // a weight) is the route's one rounding beyond the output's. The output, acc /
 // max(l, 1e-30) in bf16, is written into the consumer's q tile in the swizzled
 // layout and stored by TMA, which clips rows past S.
@@ -83,7 +91,8 @@
 // shared memory is read by the tensor cores themselves, and each kv tile
 // feeds 128 q rows instead of 64 (four 16-row warps re-reading it through
 // ldmatrix); at D = 128 the consumers hold S, O and P in 240 registers
-// where the old route's cap spilled; no thread spends instructions on
+// where the old route's cap spilled (at D = 256, S of a 64-key tile and
+// O's 128 floats a thread); no thread spends instructions on
 // addresses or copies; and under GQA with an even group the kv tiles of a
 // head are loaded once per pair of q heads. Left for later: a consumer's
 // softmax of one tile overlapping its product of the next, kv tiles
@@ -94,6 +103,8 @@
 // float32 (the first design, kept for the 1e-5 parity that rules out TF32):
 // flash_attention_f32_kernel, scalar float32 FMAs outside the tensor cores
 // (67 TFLOP/s), so its own floor is about 145 us at smollm's shape.
+// Its shared memory is 4 ((64 + 2 x 64)(D + 4) + 64 x 68) bytes: 217,088 at
+// D = 256, under the 232,448 a block can have.
 // One block of 256 threads per (64-row q tile, q head, batch), tiles staged
 // as float32 with synchronous loads; a thread owns a 4 x 4 block of the
 // score tile and a 4 x (D/16) block of the accumulator, the 16 threads of a
@@ -289,7 +300,6 @@ __global__ void __launch_bounds__(kF32Threads)
 // ---------------------------------------------------------------------------
 
 constexpr int kWgRows = 64;    // q rows of one consumer warpgroup
-constexpr int kTileK = 128;    // keys per kv tile
 constexpr int kStages = 2;     // kv tiles in flight in shared memory
 constexpr int kBf16Threads = 384;  // a producer and two consumer warpgroups
 constexpr int kPanel = 64;     // bf16 values in a 128-byte swizzle span
@@ -300,6 +310,13 @@ static_assert(kProducerRegs * 128 + 2 * kConsumerRegs * 128 <= 65536,
 // k and v larger than this do not stay in the 50 MB L2 across the grid
 constexpr long long kKvL2Bytes = 40ll << 20;
 
+// keys per kv tile: 128, or 64 at D = 256, where two stages of 128-key k
+// and v tiles beside the q tiles would take 320 KB of the SM's 227
+template <int D>
+struct KvTile {
+  static constexpr int kKeys = D > 128 ? 64 : 128;
+};
+
 // Shared memory of one block, in bytes from a 1024-byte boundary (the 128B
 // swizzle's atom is 8 rows of 128 bytes): each consumer's q tile (then its
 // output tile), the ring's k and v tiles, and the ring's mbarriers. A tile
@@ -308,7 +325,7 @@ constexpr long long kKvL2Bytes = 40ll << 20;
 template <int D>
 struct Bf16Smem {
   static constexpr int kQTile = kWgRows * D * 2;   // one consumer's q or o
-  static constexpr int kKvTile = kTileK * D * 2;   // one k or v tile
+  static constexpr int kKvTile = KvTile<D>::kKeys * D * 2;  // one k or v tile
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + 2 * kQTile;
   static constexpr int kV = kK + kStages * kKvTile;
@@ -345,6 +362,7 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
                                  int window, float scale, int pair,
                                  int q_fast) {
   using L = Bf16Smem<D>;
+  constexpr int kTileK = KvTile<D>::kKeys;    // keys per kv tile
   constexpr int kPanels = D / kPanel;
   constexpr int kKsteps = D / 16;         // k16 steps of Q K^T
   constexpr int kQPanel = kWgRows * 128;  // bytes of a q panel
@@ -425,10 +443,10 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
     const int row_lo = qa + 16 * warp + g;  // this thread's rows: +0, +8
     const uint32_t q_s = base + L::kQ + c * L::kQTile;
 
-    float s[64];          // S = Q K^T: 64 rows x 128 keys
+    float s[kTileK / 2];  // S = Q K^T: 64 rows x kTileK keys
     float acc[D / 2];     // O: 64 rows x D
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+    for (int i = 0; i < kTileK / 2; ++i) s[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     float m[2] = {kNegInf, kNegInf};  // running max of the raw dots
@@ -452,12 +470,16 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
       if (live) {
         wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < kKsteps; ++ks)
-          wgmma_ss_n128(
-              s,
-              sw128_desc(q_s + (ks / 4) * kQPanel + (ks % 4) * 32, 16, 1024),
-              sw128_desc(k_s + (ks / 4) * kKvPanel + (ks % 4) * 32, 16, 1024),
-              ks > 0);
+        for (int ks = 0; ks < kKsteps; ++ks) {
+          const uint64_t dq =
+              sw128_desc(q_s + (ks / 4) * kQPanel + (ks % 4) * 32, 16, 1024);
+          const uint64_t dk =
+              sw128_desc(k_s + (ks / 4) * kKvPanel + (ks % 4) * 32, 16, 1024);
+          if constexpr (kTileK == 64)
+            wgmma_ss_n64(s, dq, dk, ks > 0);
+          else
+            wgmma_ss_n128(s, dq, dk, ks > 0);
+        }
         wgmma_commit();
         wgmma_wait_all();
 
@@ -471,7 +493,7 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
             (window > 0 && qa + kWgRows - 1 - k0 >= window);
         if (need_mask) {
 #pragma unroll
-          for (int j = 0; j < 16; ++j)
+          for (int j = 0; j < kTileK / 8; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int qi = row_lo + (e / 2) * 8;
@@ -483,7 +505,7 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
         }
         float mx[2] = {m[0], m[1]};
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < kTileK / 8; ++j) {
           mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
           mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
         }
@@ -502,10 +524,10 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
         // P in bf16 as the A operand of P V: keys 16 kk .. 16 kk + 15 are
         // the accumulator's column blocks 2 kk and 2 kk + 1; l sums the
         // rounded weights the output sees
-        uint32_t pf[8][4];
+        uint32_t pf[kTileK / 16][4];
         float ps[2] = {0.f, 0.f};
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
+        for (int j = 0; j < kTileK / 8; ++j)
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             const uint32_t x =
@@ -530,10 +552,16 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
         for (int kk = 0; kk < kTileK / 16; ++kk) {
           const uint64_t dv =
               sw128_desc(v_s + kk * 16 * 128, kKvPanel, 1024);
-          if constexpr (D == 64)
+          if constexpr (D == 64) {
             wgmma_rs_n64(acc, pf[kk], dv);
-          else
+          } else if constexpr (D == 128) {
             wgmma_rs_n128(acc, pf[kk], dv);
+          } else {  // two halves of 128 columns, two panels apart
+            wgmma_rs_n128(acc, pf[kk], dv);
+            wgmma_rs_n128(acc + 64, pf[kk],
+                          sw128_desc(v_s + 2 * kKvPanel + kk * 16 * 128,
+                                     kKvPanel, 1024));
+          }
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -623,8 +651,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv, to;
   if (!bf16_map(enc, &tq, q, B, S, Hq, d, kWgRows) ||
-      !bf16_map(enc, &tk, k, B, Skv, Hkv, d, kTileK) ||
-      !bf16_map(enc, &tv, v, B, Skv, Hkv, d, kTileK) ||
+      !bf16_map(enc, &tk, k, B, Skv, Hkv, d, KvTile<D>::kKeys) ||
+      !bf16_map(enc, &tv, v, B, Skv, Hkv, d, KvTile<D>::kKeys) ||
       !bf16_map(enc, &to, o, B, S, Hq, d, kWgRows))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = Bf16Smem<D>::kAlloc;
@@ -649,11 +677,11 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
 // One launch on ``stream``. dtype 0 is float32 (the scalar route), 1 is bf16
 // (the tensor-core route); causal 0 attends to every key below Skv; window
 // 0 means none (a window needs the causal mask). Each route runs the
-// instance of the next panel width, 64 or 128, at or above the head dim D.
-// Returns the cudaError_t of the launch (0 on success), and
+// instance of the next panel width, 64, 128 or 256, at or above the head
+// dim D. Returns the cudaError_t of the launch (0 on success), and
 // cudaErrorInvalidValue for a D off the route's domain (bf16: a multiple of
-// 8 from 8 to 128, which TMA's 16-byte strides need; float32: of 4 from 4
-// to 128), a window without the causal mask, or another dtype.
+// 8 from 8 to 256, which TMA's 16-byte strides need; float32: of 4 from 4
+// to 256), a window without the causal mask, or another dtype.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
                                       int Skv, int Hq, int Hkv, int D,
@@ -661,19 +689,25 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int step = dtype == 1 ? 8 : 4;
-  if (D < step || D > 128 || D % step != 0 || (window > 0 && !causal))
+  if (D < step || D > 256 || D % step != 0 || (window > 0 && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1 && D <= 64)
     return launch_bf16<64>(q, k, v, o, B, S, Skv, Hq, Hkv, D, causal, window,
                            scale, st);
-  if (dtype == 1)
+  if (dtype == 1 && D <= 128)
     return launch_bf16<128>(q, k, v, o, B, S, Skv, Hq, Hkv, D, causal, window,
+                            scale, st);
+  if (dtype == 1)
+    return launch_bf16<256>(q, k, v, o, B, S, Skv, Hq, Hkv, D, causal, window,
                             scale, st);
   if (dtype == 0 && D <= 64)
     return launch_f32<64>(q, k, v, o, B, S, Skv, Hq, Hkv, D, causal, window,
                           scale, st);
-  if (dtype == 0)
+  if (dtype == 0 && D <= 128)
     return launch_f32<128>(q, k, v, o, B, S, Skv, Hq, Hkv, D, causal, window,
+                           scale, st);
+  if (dtype == 0)
+    return launch_f32<256>(q, k, v, o, B, S, Skv, Hq, Hkv, D, causal, window,
                            scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

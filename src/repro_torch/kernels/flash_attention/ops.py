@@ -7,7 +7,10 @@ show that its main path went through the kernel."""
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import attention_reference
@@ -20,7 +23,8 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     decode path reads the cache instead), limited to the last ``window``
     keys when given; with ``causal=False`` every query attends to all Skv
     keys (no window). GQA when Hkv divides Hq. float32 or bf16. On CUDA
-    the head dim must pass ``kernel.check_head_dim``."""
+    the head dim is at most ``kernel.HEAD_DIM_MAX``; one off the kernel's
+    step runs with zero columns (``pad_head_dim``)."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention takes (B, S, H, D) tensors")
     B, S, Hq, D = q.shape
@@ -50,15 +54,32 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     if device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or the CPU, not "
                          f"{device}")
-    kernel.check_head_dim(D, q.dtype)
     for t in (q, k, v):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("flash_attention takes contiguous tensors on "
                              "16-byte boundaries")
-    out = kernel.launch(q, k, v, causal=bool(causal),
-                        window=None if window is None else int(window))
+    if D > kernel.HEAD_DIM_MAX:
+        raise ValueError(f"the flash_attention kernel takes head dims up to "
+                         f"{kernel.HEAD_DIM_MAX}, got {D}")
+    qp, kp, vp = pad_head_dim(q, k, v)
+    kernel.check_head_dim(qp.shape[3], q.dtype)
+    out = kernel.launch(qp, kp, vp, causal=bool(causal),
+                        window=None if window is None else int(window),
+                        scale=1.0 / math.sqrt(D))
     flash_attention.launches += 1
-    return out
+    return out if out.shape[3] == D else out[..., :D].contiguous()
+
+
+def pad_head_dim(q, k, v):
+    """q, k and v with zero columns up to the next multiple of the
+    kernel's head-dim step in their dtype (the same tensors where D is on
+    it). The zeros leave Q K^T exact and give zero output columns; the
+    caller keeps the scale of the true D and slices the output."""
+    step = kernel.HEAD_DIM_STEP[q.dtype]
+    pad = -q.shape[3] % step
+    if not pad:
+        return q, k, v
+    return tuple(F.pad(t, (0, pad)) for t in (q, k, v))
 
 
 flash_attention.launches = 0

@@ -19,18 +19,18 @@ import torch
 NEG_INF = -1e30
 
 
-def attention_reference(q, k, v, *, causal=True, window=None):
+def attention_reference(q, k, v, *, causal=True, window=None, scale=None):
     """q: (B,S,Hq,D); k/v: (B,Skv,Hkv,D) -> (B,S,Hq,D), causal over
     positions counted from 0, and within ``window`` keys when given; with
     ``causal=False`` over all Skv keys (the wrapper refuses a window
-    there)."""
+    there). ``scale`` multiplies the dots (default 1/sqrt(D))."""
     S, Hq, D = q.shape[1], q.shape[2], q.shape[3]
     Skv, Hkv = k.shape[1], k.shape[2]
     group = Hq // Hkv
     kf = torch.repeat_interleave(k.to(torch.float32), group, dim=2)
     vf = torch.repeat_interleave(v.to(torch.float32), group, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf)
-    s = s * (1.0 / math.sqrt(D))
+    s = s * (1.0 / math.sqrt(D) if scale is None else scale)
     qp = torch.arange(S, device=q.device)[:, None]
     kp = torch.arange(Skv, device=q.device)[None, :]
     ok = (qp >= kp) | (not causal)

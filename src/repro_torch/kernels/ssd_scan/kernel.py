@@ -15,9 +15,9 @@ import torch
 
 from repro_torch.kernels import build
 
-CHUNK_MAX = 128      # a chunk's rows in the kernel's tiles
+CHUNK_MAX = 256      # a chunk's rows in the kernel's two row tiles
 CHUNK_STEP = 16      # a chunk is whole 16-row tiles of the tensor cores
-HEAD_DIM_MAX = 64    # the x tile's columns
+HEAD_DIM_MAX = 128   # two blocks of the x tile's 64 columns a head
 STATE_MAX = 256      # the largest state dim that fits the shared memory
 WIDTH_STEP = 8       # p and n: rows of a multiple of 16 bytes in bf16
 VEC = 4              # elements of one vector load of x, B or C
@@ -32,7 +32,8 @@ def check_widths(p, n, chunk):
     ``n`` and ``chunk``: p and n multiples of ``WIDTH_STEP`` up to
     ``HEAD_DIM_MAX`` and ``STATE_MAX``, the chunk a multiple of
     ``CHUNK_STEP`` up to ``CHUNK_MAX``. The tiles' columns past p or n and
-    rows past the chunk read as zeros."""
+    rows past the chunk read as zeros; a chunk above 128 is computed as one
+    chunk in two row tiles."""
     if not (CHUNK_STEP <= chunk <= CHUNK_MAX and chunk % CHUNK_STEP == 0):
         raise ValueError(f"the ssd_scan kernel takes chunks that are "
                          f"multiples of {CHUNK_STEP} up to {CHUNK_MAX}, got "

@@ -8,6 +8,7 @@ main path went through the kernel."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import kernel
 from repro_torch.kernels.ssd_scan.ref import ssd_reference
@@ -42,7 +43,8 @@ def _check(x, dt, A, B, C, chunk):
 
 
 def _check_kernel(x, dt, A, B, C, chunk):
-    """What the CUDA kernel takes beyond the wrapper's own checks."""
+    """What the CUDA kernel takes beyond the wrapper's own checks (x, B
+    and C padded by ``pad_widths``)."""
     kernel.check_widths(x.shape[3], B.shape[3], chunk)
     vec = kernel.VEC
     for name, t in (("x", x), ("B", B), ("C", C)):
@@ -59,22 +61,49 @@ def _check_kernel(x, dt, A, B, C, chunk):
         raise ValueError("ssd_scan takes dt and A contiguous")
 
 
+def pad_widths(x, B, C):
+    """x with zero columns up to the next multiple of the kernel's width
+    step in p, and B and C in n (the same tensors where a width is on
+    it). The zeros leave C B^T, y's live columns and the state's live part
+    exact; the caller slices y and the state."""
+    step = kernel.WIDTH_STEP
+    pad_p, pad_n = -x.shape[3] % step, -B.shape[3] % step
+    if pad_p:
+        x = F.pad(x, (0, pad_p))
+    if pad_n:
+        B, C = F.pad(B, (0, pad_n)), F.pad(C, (0, pad_n))
+    return x, B, C
+
+
 def ssd_scan(x, dt, A, B, C, *, chunk=128, return_state=False):
     """x:(b,s,h,p) dt:(b,s,h) A:(h,) B,C:(b,s,g,n) -> (y:(b,s,h,p) in x's
     dtype, final state (b,h,p,n) float32 when ``return_state``, else
     None). Any s: a ragged last chunk is exact (as ``ssd_chunked``'s dt = 0
-    padding). x, B and C float32 or bf16; dt and A float32."""
+    padding). x, B and C float32 or bf16; dt and A float32. On CUDA p and
+    n are at most ``kernel.HEAD_DIM_MAX`` and ``kernel.STATE_MAX``; widths
+    off the kernel's step run with zero columns (``pad_widths``)."""
     device = _check(x, dt, A, B, C, chunk)
     if device.type == "cpu":
         y, state = ssd_reference(x, dt, A, B, C, chunk=chunk)
         return y, state if return_state else None
     if device.type != "cuda":
         raise ValueError(f"ssd_scan runs on CUDA or the CPU, not {device}")
-    _check_kernel(x, dt, A, B, C, chunk)
-    out = kernel.launch(x, dt, A, B, C, chunk=int(chunk),
-                        return_state=return_state)
+    p, n = x.shape[3], B.shape[3]
+    for name, width, top in (("head dim", p, kernel.HEAD_DIM_MAX),
+                             ("state dim", n, kernel.STATE_MAX)):
+        if width > top:
+            raise ValueError(f"the ssd_scan kernel takes a {name} up to "
+                             f"{top}, got {width}")
+    xp, Bp, Cp = pad_widths(x, B, C)
+    _check_kernel(xp, dt, A, Bp, Cp, chunk)
+    y, state = kernel.launch(xp, dt, A, Bp, Cp, chunk=int(chunk),
+                             return_state=return_state)
     ssd_scan.launches += 1
-    return out
+    if xp is not x:
+        y = y[..., :p].contiguous()
+    if state is not None and (xp is not x or Bp is not B):
+        state = state[:, :, :p, :n].contiguous()
+    return y, state
 
 
 ssd_scan.launches = 0

@@ -184,8 +184,10 @@ def test_non_causal_refuses_a_window():
 
 
 @pytest.mark.parametrize("dtype,good,bad", [
-    ("bfloat16", (8, 16, 24, 64, 72, 80, 96, 120, 128), (4, 12, 130, 136)),
-    ("float32", (4, 12, 16, 24, 64, 68, 100, 128), (2, 6, 132, 256))])
+    ("bfloat16", (8, 16, 24, 64, 72, 80, 96, 120, 128, 136, 192, 248, 256),
+     (4, 12, 130, 264, 272)),
+    ("float32", (4, 12, 16, 24, 64, 68, 100, 128, 132, 200, 252, 256),
+     (2, 6, 258, 260, 384))])
 def test_head_dim_domain(dtype, good, bad):
     td = getattr(torch, dtype)
     for D in good:
@@ -210,7 +212,98 @@ CUDA_DOMAIN_SHAPES = [
     dict(B=1, S=130, Skv=600, Hq=4, Hkv=4, D=64, causal=False, window=None),
     dict(B=1, S=64, Skv=100, Hq=3, Hkv=1, D=24, causal=False, window=None),
     dict(B=1, S=300, Skv=77, Hq=8, Hkv=2, D=128, causal=False, window=None),
-    dict(B=1, S=50, Skv=300, Hq=2, Hkv=2, D=96, causal=False, window=None)]
+    dict(B=1, S=50, Skv=300, Hq=2, Hkv=2, D=96, causal=False, window=None),
+    # the 256-column instance (64-key tiles in bf16): gemma's D = 256 with
+    # its GQA 2:1 and a window edge inside a tile, D = 136 through it with
+    # zero columns, non-causal; head dims off the step, padded by the
+    # wrapper (12 and 100 in bf16, 6 in both)
+    dict(B=1, S=300, Skv=300, Hq=4, Hkv=2, D=256, causal=True, window=None),
+    dict(B=1, S=700, Skv=700, Hq=4, Hkv=2, D=256, causal=True, window=200),
+    dict(B=2, S=130, Skv=130, Hq=2, Hkv=2, D=136, causal=True, window=None),
+    dict(B=1, S=100, Skv=260, Hq=4, Hkv=2, D=256, causal=False, window=None),
+    dict(B=1, S=200, Skv=200, Hq=4, Hkv=2, D=12, causal=True, window=None),
+    dict(B=1, S=150, Skv=150, Hq=9, Hkv=3, D=100, causal=True, window=50),
+    dict(B=1, S=64, Skv=64, Hq=2, Hkv=1, D=6, causal=True, window=None)]
+
+
+# head dims 136 to 256 (gemma's 256, the 256-column instance's columns past
+# 136 read as zeros): the plain version against the reference's kernel in
+# interpret mode, GQA 2:1, causal, a window and non-causal
+WIDE_CASES = [
+    # B, S, Skv, Hq, Hkv, D, window, causal, blk_q, blk_k
+    (1, 96, 96, 4, 2, 256, None, True, 32, 32),
+    (1, 128, 128, 4, 2, 256, 40, True, 64, 64),
+    (1, 64, 96, 4, 2, 256, None, False, 64, 96),
+    (1, 96, 96, 4, 2, 136, None, True, 32, 32),
+    (1, 128, 128, 4, 2, 136, 40, True, 64, 64),
+    (1, 64, 96, 4, 2, 136, None, False, 64, 96),
+]
+
+
+@pytest.mark.parametrize("B,S,Skv,Hq,Hkv,D,win,causal,bq,bk", WIDE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_head_dims_match_interpret_kernel(B, S, Skv, Hq, Hkv, D, win,
+                                               causal, bq, bk, dtype):
+    rng = np.random.default_rng(S + Skv + D)
+    q, k, v = (rng.normal(0, 1, (B, n, h, D)).astype(np.float32)
+               for n, h in ((S, Hq), (Skv, Hkv), (Skv, Hkv)))
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jax_flash(jnp.asarray(q, jd), jnp.asarray(k, jd),
+                     jnp.asarray(v, jd), causal=causal, window=win,
+                     blk_q=bq, blk_k=bk, interpret=True)
+    kernel.check_head_dim(D, td)
+    got = ops.flash_attention(*(torch.from_numpy(x).to(td)
+                                for x in (q, k, v)), causal=causal,
+                              window=win)
+    assert got.dtype == td and got.shape == (B, S, Hq, D)
+    np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                               np.asarray(want, np.float32), rtol=0,
+                               atol=TOL[dtype])
+
+
+# head dims off the kernel's step: the wrapper's zero columns (as it adds
+# them on CUDA), the plain version at the scale of the true D, and the
+# slice, against the reference's kernel at the true D
+PADDED_CASES = [
+    # B, S, Hq, Hkv, D, window, dtype, padded D
+    (1, 96, 4, 2, 12, None, "bfloat16", 16),
+    (1, 130, 9, 3, 100, 48, "bfloat16", 104),
+    (2, 64, 4, 2, 6, None, "float32", 8),
+    (1, 96, 4, 2, 6, 20, "bfloat16", 8),
+]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,win,dtype,Dp", PADDED_CASES)
+def test_padded_head_dims_match_interpret_kernel(B, S, Hq, Hkv, D, win,
+                                                 dtype, Dp):
+    q, k, v = operands(B, S, Hq, Hkv, D, seed=S + D)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jax_flash(jnp.asarray(q, jd), jnp.asarray(k, jd),
+                     jnp.asarray(v, jd), causal=True, window=win, blk_q=32,
+                     blk_k=32, interpret=True)
+    tq, tk, tv = (torch.from_numpy(x).to(td) for x in (q, k, v))
+    qp, kp, vp = ops.pad_head_dim(tq, tk, tv)
+    assert qp.shape[3] == kp.shape[3] == vp.shape[3] == Dp
+    kernel.check_head_dim(Dp, td)
+    with pytest.raises(ValueError):
+        kernel.check_head_dim(D, td)
+    assert torch.equal(qp[..., :D], tq) and not qp[..., D:].any()
+    out = attention_reference(qp, kp, vp, window=win,
+                              scale=1.0 / np.sqrt(D))
+    assert not out[..., D:].any()   # zero columns of v: zero outputs
+    got = out[..., :D]
+    np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                               np.asarray(want, np.float32), rtol=0,
+                               atol=TOL[dtype])
+    # the plain path of the wrapper at the true D agrees
+    torch.testing.assert_close(got.float(), ops.flash_attention(
+        tq, tk, tv, window=win).float(), rtol=0, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,D", [("bfloat16", 264), ("float32", 260)])
+def test_kernel_refuses_head_dims_past_the_widest_instance(dtype, D):
+    with pytest.raises(ValueError, match="up to 256"):
+        kernel.check_head_dim(D, getattr(torch, dtype))
 
 
 @pytest.mark.cuda
@@ -245,8 +338,8 @@ def test_cuda_kernel_over_its_domain(shape, dtype):
 def test_cuda_kernel_refuses_head_dims_off_its_domain():
     if not torch.cuda.is_available():
         pytest.skip("cuda: needs a CUDA card and nvcc")
-    for dtype, D in ((torch.bfloat16, 12), (torch.bfloat16, 136),
-                     (torch.float32, 6), (torch.float32, 256)):
+    for dtype, D in ((torch.bfloat16, 257), (torch.bfloat16, 264),
+                     (torch.float32, 258), (torch.float32, 260)):
         q = torch.zeros((1, 16, 2, D), dtype=dtype, device="cuda")
         before = ops.flash_attention.launches
         with pytest.raises(ValueError):

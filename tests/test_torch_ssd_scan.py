@@ -198,15 +198,17 @@ def test_cuda_kernel_takes_strided_views_and_refuses_other_widths():
     torch.testing.assert_close(y.float(), want_y.float(), rtol=5e-2,
                                atol=5e-2)
     torch.testing.assert_close(state, want_state, rtol=5e-2, atol=5e-2)
-    with pytest.raises(ValueError):                       # p = 72
-        ops.ssd_scan(torch.cat([x, x[..., :8]], -1), dt, A, B, C)
-    with pytest.raises(ValueError):
-        ops.ssd_scan(x, dt, A, B, C, chunk=40)            # not 16 | chunk
-    with pytest.raises(ValueError):
-        ops.ssd_scan(x, dt, A, B, C, chunk=256)           # above 128
-    with pytest.raises(ValueError):
-        ops.ssd_scan(x, dt, A, B[..., :36].contiguous(),
-                     C[..., :36].contiguous())                # n = 36
+    for what, args, chunk in (
+            ("p = 136", (torch.cat([x, x, x[..., :8]], -1), dt, A, B, C),
+             128),
+            ("chunk 40", (x, dt, A, B, C), 40),           # not 16 | chunk
+            ("chunk 272", (x, dt, A, B, C), 272),         # above 256
+            ("n = 264", (x, dt, A, torch.cat([B, B, B[..., :8]], -1),
+                         torch.cat([C, C, C[..., :8]], -1)), 128)):
+        before = ops.ssd_scan.launches
+        with pytest.raises(ValueError):
+            ops.ssd_scan(*args, chunk=chunk)
+        assert ops.ssd_scan.launches == before, what
 
 
 @pytest.mark.cuda
@@ -236,15 +238,87 @@ def test_cuda_kernel_takes_views_on_8_byte_boundaries():
     torch.testing.assert_close(state, want_state, rtol=5e-2, atol=5e-2)
 
 
+# chunks above 128 and head dims above 64: the plain version against the
+# reference's kernel in interpret mode (y) and its oracle (the state), the
+# reference's Q = min(chunk, s) taken at s >= chunk
+WIDE_CASES = [
+    # b, s, h, p, g, n, chunk
+    (1, 512, 2, 32, 1, 32, 256),
+    (1, 256, 2, 128, 1, 32, 128),
+    (1, 512, 2, 128, 1, 16, 256),
+    (1, 288, 2, 16, 1, 24, 144),
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,Q", WIDE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_chunks_and_head_dims_match_interpret_kernel(b, s, h, p, g, n,
+                                                          Q, dtype):
+    j, t = _both(operands(b, s, h, p, g, n, seed=s + p + Q), dtype)
+    kernel.check_widths(p, n, Q)
+    want_y, _ = jax_ssd_scan(*j, chunk=Q, interpret=True)
+    _, want_state = jax_ssd_chunked(*j, chunk=Q)
+    y, state = ops.ssd_scan(*t, chunk=Q, return_state=True)
+    assert y.shape == (b, s, h, p) and state.shape == (b, h, p, n)
+    _close(y, want_y, dtype)
+    _close(state, want_state, dtype)
+
+
+# widths off the kernel's step of 8: the wrapper's zero columns (as it adds
+# them on CUDA: x's p, B's and C's n), the plain version, and the slice,
+# against the reference at the true widths
+PADDED_CASES = [
+    # b, s, h, p, g, n, chunk, padded p, padded n
+    (1, 128, 2, 12, 1, 20, 32, 16, 24),
+    (2, 96, 4, 12, 2, 20, 48, 16, 24),
+    (1, 256, 2, 100, 1, 30, 256, 104, 32),
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,Q,pp,nn", PADDED_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_padded_widths_match_interpret_kernel(b, s, h, p, g, n, Q, pp, nn,
+                                              dtype):
+    j, t = _both(operands(b, s, h, p, g, n, seed=s + n), dtype)
+    want_y, _ = jax_ssd_scan(*j, chunk=Q, interpret=True)
+    _, want_state = jax_ssd_chunked(*j, chunk=Q)
+    x, dt, A, B, C = t
+    xp, Bp, Cp = ops.pad_widths(x, B, C)
+    assert xp.shape[3] == pp and Bp.shape[3] == Cp.shape[3] == nn
+    kernel.check_widths(pp, nn, Q)
+    with pytest.raises(ValueError):
+        kernel.check_widths(p, n, Q)
+    yp, sp = ssd_reference(xp, dt, A, Bp, Cp, chunk=Q)
+    # the zero columns stay zero: y's past p, the state's past p and n
+    assert not yp[..., p:].any()
+    assert not sp[:, :, p:].any() and not sp[..., n:].any()
+    _close(yp[..., :p], want_y, dtype)
+    _close(sp[:, :, :p, :n], want_state, dtype)
+    y, state = ops.ssd_scan(*t, chunk=Q, return_state=True)
+    torch.testing.assert_close(y.float(), yp[..., :p].float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(state, sp[:, :, :p, :n], rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
 def test_width_and_chunk_domain():
     for p, n, chunk in ((8, 8, 16), (16, 16, 16), (64, 128, 64),
-                        (40, 72, 48), (64, 256, 128), (24, 200, 112)):
+                        (40, 72, 48), (64, 256, 128), (24, 200, 112),
+                        (72, 128, 128), (64, 128, 144), (64, 128, 256),
+                        (128, 128, 128), (128, 256, 256), (120, 8, 240)):
         kernel.check_widths(p, n, chunk)
-    for p, n, chunk in ((72, 128, 128), (4, 16, 16), (12, 16, 16),
+    for p, n, chunk in ((136, 128, 128), (4, 16, 16), (12, 16, 16),
                         (64, 260, 128), (64, 12, 128), (64, 0, 128),
-                        (64, 128, 40), (64, 128, 8), (64, 128, 144)):
+                        (64, 128, 40), (64, 128, 8), (64, 128, 272),
+                        (256, 128, 128), (64, 264, 256), (64, 128, 264)):
         with pytest.raises(ValueError):
             kernel.check_widths(p, n, chunk)
+    with pytest.raises(ValueError, match="up to 256"):
+        kernel.check_widths(64, 128, 272)
+    with pytest.raises(ValueError, match="up to 128"):
+        kernel.check_widths(136, 128, 128)
+    with pytest.raises(ValueError, match="up to 256"):
+        kernel.check_widths(64, 264, 128)
 
 
 # the domain on the card: SMOKE mamba2's widths at chunk 16, chunk 64 at
@@ -258,7 +332,20 @@ CUDA_DOMAIN_SHAPES = [
     dict(b=1, s=250, h=3, p=64, g=1, n=200, chunk=80),   # n over 4 slabs
     dict(b=2, s=100, h=2, p=24, g=1, n=96, chunk=112),
     dict(b=1, s=384, h=2, p=56, g=1, n=136, chunk=128),
-    dict(b=1, s=20, h=2, p=16, g=1, n=16, chunk=16)]     # one ragged chunk
+    dict(b=1, s=20, h=2, p=16, g=1, n=16, chunk=16),     # one ragged chunk
+    # chunks of two row tiles: 256 (Codestral's n and groups, ragged S),
+    # 144 and 240 (row tiles of 72 and 120 rows), one chunk below S; head
+    # dims of two 64-column blocks (128, 72) at chunk 128 and 256 with the
+    # largest n; widths off the step of 8, padded by the wrapper
+    dict(b=1, s=600, h=4, p=64, g=2, n=128, chunk=256),
+    dict(b=2, s=300, h=2, p=64, g=1, n=64, chunk=144),
+    dict(b=1, s=500, h=3, p=32, g=1, n=256, chunk=240),
+    dict(b=1, s=100, h=2, p=64, g=1, n=128, chunk=256),
+    dict(b=1, s=384, h=2, p=128, g=1, n=128, chunk=128),
+    dict(b=1, s=520, h=2, p=128, g=1, n=256, chunk=256),
+    dict(b=1, s=300, h=2, p=72, g=1, n=96, chunk=176),
+    dict(b=2, s=130, h=4, p=12, g=2, n=20, chunk=64),
+    dict(b=1, s=256, h=2, p=100, g=1, n=30, chunk=256)]
 
 
 @pytest.mark.cuda
@@ -283,6 +370,33 @@ def test_cuda_kernel_over_its_domain(shape, dtype):
                                atol=TOL[dtype])
     torch.testing.assert_close(state, want_state, rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", [0, 4], ids=["tma", "cp_async"])
+def test_cuda_kernel_takes_views_at_two_row_tiles(pad):
+    """Codestral's mixer widths cut to 2 heads (p = 64, one group of n =
+    128) at chunk 256 and a p = 128 head at chunk 144, as views into one
+    buffer on 16-byte row boundaries (TMA) and on 8-byte ones (cp.async),
+    with a ragged S."""
+    if not torch.cuda.is_available():
+        pytest.skip("cuda: needs a CUDA card and nvcc")
+    for b, s, h, p, g, n, chunk in ((1, 600, 2, 64, 1, 128, 256),
+                                    (1, 300, 2, 128, 1, 64, 144)):
+        _, t = _both(operands(b, s, h, p, g, n, seed=pad + p), "bfloat16")
+        x, dt, A, B, C = [a.cuda() for a in t]
+        tail = torch.zeros((b, s, pad), dtype=x.dtype, device=x.device)
+        xbc = torch.cat([x.reshape(b, s, -1), B.reshape(b, s, -1),
+                         C.reshape(b, s, -1), tail], dim=-1)
+        xv = xbc[..., :h * p].reshape(b, s, h, p)
+        Bv = xbc[..., h * p:h * p + g * n].reshape(b, s, g, n)
+        Cv = xbc[..., h * p + g * n:h * p + 2 * g * n].reshape(b, s, g, n)
+        y, state = ops.ssd_scan(xv, dt, A, Bv, Cv, chunk=chunk,
+                                return_state=True)
+        want_y, want_state = ssd_reference(x, dt, A, B, C, chunk=chunk)
+        torch.testing.assert_close(y.float(), want_y.float(), rtol=5e-2,
+                                   atol=5e-2)
+        torch.testing.assert_close(state, want_state, rtol=5e-2, atol=5e-2)
 
 
 @pytest.mark.cuda

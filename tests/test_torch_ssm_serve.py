@@ -218,3 +218,38 @@ def test_unported_parts_raise_and_nothing_falls_back_to_the_cpu(
                  lambda: concrete_inputs(cfg, "train_4k", scale=256)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+def test_prefill_at_chunk_256_matches_the_reference():
+    """The slice at Mamba2's own default chunk: SMOKE mamba2-1.3b with
+    ``ssm_chunk=256`` in both packages, 2 prompts of 512 tokens (two whole
+    chunks; the reference's kernel takes Q = min(chunk, s), so shorter
+    prompts would never reach a chunk of 256), the JAX weights carried
+    across in float32. The prefill logits agree within 1e-4, as the other
+    families' (``tests/test_torch_lm_families.py``), and every layer's scan
+    went through the K5 wrapper at chunk 256."""
+    b, s = 2, 512
+    jcfg = j_smoke(ARCH).replace(ssm_chunk=256)
+    jm = j_get_model(jcfg)
+    jparams = jax.tree.map(lambda a: a.astype(jnp.float32),
+                           jm.init(jax.random.PRNGKey(0)))
+    cfg = get_smoke_config(ARCH).replace(ssm_chunk=256)
+    params = convert.lm_params_from_jax(
+        cfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    m = get_model(cfg)
+    tokens = np.random.default_rng(7).integers(0, cfg.vocab, (b, s),
+                                               dtype=np.int32)
+    jl, _ = jm.prefill(jparams, {"tokens": jnp.asarray(tokens)},
+                       jm.init_cache(b, s))
+    chunks = []
+
+    def counted(*args, chunk):
+        chunks.append(chunk)
+        return ssd_ops.ssd_scan(*args, chunk=chunk, return_state=True)
+
+    with torch.inference_mode():
+        tl, _ = m.prefill(params, {"tokens": torch.from_numpy(tokens)},
+                          m.init_cache(b, s, device="cpu"), ssd_fn=counted)
+    assert chunks == [256] * cfg.n_layers
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl, np.float32),
+                               rtol=0, atol=1e-4)

@@ -8,7 +8,8 @@ kernels are held to on the card (``chip_smoke.py``'s ``FA_TOL`` and
 ``SSD_TOL``, the reference's own, ``tests/test_kernels.py``):
 
 - K4 rounds P to bf16 for its product with V, per kv tile of keys (128
-  in the wgmma route, 64 in the mma.sync route it replaced) against that
+  in the wgmma route, 64 at its 256-column instance for head dims above
+  128 and in the mma.sync route it replaced) against that
   tile's running max, and sums l from the same rounded P; the scores, l
   and the accumulator stay float32. Held at 2e-2 absolute. Each block of
   q rows walks only the kv tiles from its window's first live tile
@@ -22,8 +23,9 @@ kernels are held to on the card (``chip_smoke.py``'s ``FA_TOL`` and
   route's warps factor it), x * exp(dA_cum[Q-1] - dA_cum) * dt for the
   state update (the decay folded into x, not into B), and the bf16 copy of
   h that C h^T reads; products of bf16 inputs are exact in float32 and
-  every sum is float32. Held at 5e-2 as atol and rtol on y and on the
-  final state.
+  every sum is float32. A chunk above 128 is one chunk in two row tiles
+  (the 16-row tiles of L's factorization start at each). Held at 5e-2 as
+  atol and rtol on y and on the final state.
 
 Each emulation is held against the reference's Pallas kernel in interpret
 mode (as ``tests/test_kernels.py`` runs it) or, where that kernel does not
@@ -130,7 +132,10 @@ def ssd_tc_emulation(x, dt, A, B, C, *, chunk=128):
     diagonal block rf = exp(cum[i] - cum[r0]) and kd = exp(cum[r0] -
     cum[j]) * dt[j], both at most 1 (times dt); on the diagonal block
     exp(cum[i] - cum[j]) * dt[j] and an exact 0 above the diagonal. A
-    ragged S is padded with dt = 0, as the kernel reads zeros past S."""
+    chunk above 128 is one chunk in two row tiles of Q / 2 positions, whose
+    16-row tiles start at each row tile's first row (every key of row tile
+    0 lies below the rows of row tile 1). A ragged S is padded with dt = 0,
+    as the kernel reads zeros past S."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     rep = h // g
@@ -142,7 +147,8 @@ def ssd_tc_emulation(x, dt, A, B, C, *, chunk=128):
     Cf = torch.repeat_interleave(
         torch.nn.functional.pad(C.to(F32), (0, 0, 0, 0, 0, pad)), rep, dim=2)
     rows = torch.arange(chunk)
-    r0 = rows // 16 * 16                                # each row's tile start
+    R = chunk if chunk <= 128 else chunk // 2           # a row tile's rows
+    r0 = rows // R * R + rows % R // 16 * 16            # each row's tile start
     tri = rows[:, None] >= rows[None, :]
     below = rows[None, :] < r0[:, None]                 # left of the diagonal block
     state = torch.zeros((b, h, p, n))
@@ -310,6 +316,44 @@ def test_fa_bf16_rounding_without_the_causal_mask(B, S, Skv, Hq, Hkv, D,
                                atol=FA_TOL)
 
 
+# the 256-column instance: head dims 136 to 256 through 64-key tiles (a
+# block's two consumers take two heads of one kv head at GQA 2:1, 128
+# positions of one head at 1:1), the columns past D zeros; gemma-2's GQA
+# with a window edge inside a 64-key tile, causal and not
+FA_D256_CASES = [
+    # B, S, Skv, Hq, Hkv, D, window, causal, q_block
+    (1, 192, 192, 4, 2, 256, None, True, 64),
+    (1, 200, 200, 2, 2, 256, None, True, 128),     # ragged S, group 1
+    (1, 320, 320, 4, 2, 256, 100, True, 64),       # window edge in a tile
+    (1, 160, 160, 4, 2, 136, None, True, 64),      # D = 136: 120 zeros
+    (1, 64, 150, 4, 2, 256, None, False, 64),      # every tile, Skv ragged
+]
+
+
+@pytest.mark.parametrize("B,S,Skv,Hq,Hkv,D,win,causal,q_block",
+                         FA_D256_CASES)
+def test_fa_bf16_rounding_at_the_256_column_instance(B, S, Skv, Hq, Hkv, D,
+                                                     win, causal, q_block):
+    rng = np.random.default_rng(S + Skv + D)
+    q, k, v = (rng.normal(0, 1, (B, n, h, D)).astype(np.float32)
+               for n, h in ((S, Hq), (Skv, Hkv), (Skv, Hkv)))
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    blk = 32 if causal else 64
+    want = np.asarray(jax_flash(jq, jk, jv, causal=causal, window=win,
+                                blk_q=blk if S % blk == 0 else S,
+                                blk_k=blk if Skv % blk == 0 else Skv,
+                                interpret=True), np.float32)
+    tq, tk, tv = (torch.from_numpy(a).to(BF16) for a in (q, k, v))
+    got = fa_tc_emulation(tq, tk, tv, window=win, tile=64, causal=causal,
+                          q_block=q_block if causal else None, d_pad=256)
+    assert got.dtype == BF16 and got.shape == (B, S, Hq, D)
+    np.testing.assert_allclose(got.to(F32).numpy(), want, rtol=0,
+                               atol=FA_TOL)
+    plain = attention_reference(tq, tk, tv, causal=causal, window=win)
+    torch.testing.assert_close(got.to(F32), plain.to(F32), rtol=0,
+                               atol=FA_TOL)
+
+
 @pytest.mark.parametrize("q_block", [64, 128], ids=["pair", "rows"])
 @pytest.mark.parametrize("S,win", [(512, 100), (700, 200), (384, None)])
 def test_fa_walk_from_kt_begin_changes_nothing(S, win, q_block):
@@ -434,6 +478,51 @@ SSD_CHUNK_CASES = [
     (1, 256, 2, 64, 1, 128, 64),
     (1, 192, 3, 64, 1, 64, 64),       # 3 heads a group
 ]
+
+
+# chunks of two row tiles: Mamba2's default chunk of 256 at mamba2's and
+# Codestral's widths (8 groups there, cut to 2 here), 144 and 240 (row
+# tiles of 72 and 120 rows, the 16-row tiles starting at each), and head
+# dims of two 64-column blocks (the blocks are independent: the emulation
+# is the same function column by column)
+SSD_WIDE_CASES = [
+    # b, s, h, p, g, n, chunk
+    (1, 512, 2, 64, 1, 128, 256),
+    (1, 512, 4, 64, 2, 128, 256),
+    (1, 288, 2, 64, 1, 64, 144),
+    (1, 480, 2, 32, 1, 32, 240),
+    (1, 256, 2, 128, 1, 64, 128),
+    (1, 512, 2, 128, 1, 128, 256),
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_WIDE_CASES)
+def test_ssd_bf16_rounding_at_two_row_tiles(b, s, h, p, g, n, chunk):
+    j, t = _ssd_both(ssd_operands(b, s, h, p, g, n, seed=s + chunk + p))
+    want_y, _ = jax_ssd_scan(*j, chunk=chunk, interpret=True)
+    _, want_state = jax_ssd_chunked(*j, chunk=chunk)
+    y, state = ssd_tc_emulation(*t, chunk=chunk)
+    assert y.dtype == BF16 and y.shape == (b, s, h, p)
+    assert state.shape == (b, h, p, n)
+    _ssd_close(y, want_y)
+    _ssd_close(state, want_state)
+    _ssd_close_to_plain(t, y, state, chunk=chunk)
+
+
+def test_ssd_chunk_256_is_not_two_chunks_of_128():
+    """The emulation at chunk 256 computes one chunk: its C B^T .* L
+    reaches across the two row tiles, where two chunks of 128 pass the
+    first half through h's bf16 copy and the state. The two differ (more
+    than float32 noise), and the one at 256 is the closer to the
+    reference's chunk of 256."""
+    j, t = _ssd_both(ssd_operands(1, 512, 2, 64, 1, 128, seed=11))
+    want_y, _ = jax_ssd_scan(*j, chunk=256, interpret=True)
+    want = torch.from_numpy(np.asarray(want_y, np.float32))
+    one, _ = ssd_tc_emulation(*t, chunk=256)
+    two, _ = ssd_tc_emulation(*t, chunk=128)
+    assert float((one.to(F32) - two.to(F32)).abs().max()) > 1e-2
+    assert float((one.to(F32) - want).abs().mean()) < float(
+        (two.to(F32) - want).abs().mean())
 
 
 @pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CHUNK_CASES)

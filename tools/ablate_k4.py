@@ -35,15 +35,25 @@ NO_EXP = ("pack_bf16(ex2(fmaf(s[4 * j + 2 * r], sl, -mlog[r])),\n"
           "-mlog[r]))")
 # P still feeds the accumulator behind a test the compiler cannot decide,
 # so that the softmax is not removed with the product
-NO_PV = ("          if constexpr (D == 64)\n"
+NO_PV = ("          if constexpr (D == 64) {\n"
          "            wgmma_rs_n64(acc, pf[kk], dv);\n"
-         "          else\n"
-         "            wgmma_rs_n128(acc, pf[kk], dv);",
+         "          } else if constexpr (D == 128) {\n"
+         "            wgmma_rs_n128(acc, pf[kk], dv);\n"
+         "          } else {  // two halves of 128 columns, two panels apart\n"
+         "            wgmma_rs_n128(acc, pf[kk], dv);\n"
+         "            wgmma_rs_n128(acc + 64, pf[kk],\n"
+         "                          sw128_desc(v_s + 2 * kKvPanel + kk * 16 * 128,\n"
+         "                                     kKvPanel, 1024));\n"
+         "          }",
          "          if (dv == 1)\n"
          "            acc[0] += __uint_as_float(pf[kk][0] ^ pf[kk][1] ^ "
          "pf[kk][2] ^ pf[kk][3]);")
-NO_S = ("          wgmma_ss_n128(\n              s,",
-        "          if (ks < 0) wgmma_ss_n128(\n              s,")
+NO_S = ("            wgmma_ss_n64(s, dq, dk, ks > 0);\n"
+        "          else\n"
+        "            wgmma_ss_n128(s, dq, dk, ks > 0);",
+        "            { if (ks < 0) wgmma_ss_n64(s, dq, dk, ks > 0); }\n"
+        "          else\n"
+        "            { if (ks < 0) wgmma_ss_n128(s, dq, dk, ks > 0); }")
 Q_FAST = "  const int q_fast = 4ll * B * Skv * Hkv * d > kKvL2Bytes;"
 VARIANTS = {
     "as_is": [],

@@ -45,12 +45,13 @@ def never(line, braced=False):
         "{ " + new + " }" if braced else new)
 
 
-S64 = never("          wgmma_ss_n64(s, dc, db, sl > 0 || ks > 0);", True)
-S128 = never("          wgmma_ss_n128(s, dc, db, sl > 0 || ks > 0);", True)
-CHT = never("          wgmma_ss_n64(y, sw128_desc(cs_s + c * 64 * 128 + "
+S64 = never("        wgmma_ss_n64(s, dc, db, sl > 0 || ks > 0);", True)
+S128 = never("        wgmma_ss_n128(s, dc, db, sl > 0 || ks > 0);", True)
+CHT = never("        wgmma_ss_n64(y, sw128_desc(cs_s + c * 64 * 128 + "
             "ks * 32, 16, 1024),")
-STATE = never("              wgmma_rs_n64(h[hs], xf[kk],")
-MX = never("      wgmma_rs_n64(y, mf[kk],")
+STATE = never("            wgmma_rs_n64(h[hs], xf[kk],")
+MX = never("    wgmma_rs_n64(y, mf[kk], sw128_desc(xt + kk * 16 * 128, "
+           "kTileBytes, 1024),")
 VARIANTS = {
     "as_is": [],
     "three_chunk_stages": [("constexpr int kChunkStages = 2;",
@@ -60,8 +61,8 @@ VARIANTS = {
     "no_state": [STATE],
     "no_mx": [MX],
     "no_products": [S64, S128, CHT, STATE, MX],
-    "no_ystore": [never("      tma_store(ty, w.ytile(c), 0, w.head, "
-                        "t0 + 64 * c, w.b);")],
+    "no_ystore": [never("    tma_store(ty, w.ytile(c), w.p0, w.head, row0, "
+                        "w.b);")],
     "no_dt_load": [("    d[j] = tt < rows ? dtb[(long long)tt * a.H] : 0.f;",
                     "    d[j] = tt < rows ? 0.01f : 0.f;")],
 }
